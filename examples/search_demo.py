@@ -1,4 +1,4 @@
-"""End-to-end demo: the `code/search_image.py` flow on the TPU framework.
+"""End-to-end demo: the `code/search_image.py` flow on this framework.
 
 Builds a synthetic color gallery, indexes it with a jitted ViT-B/32 tower
 (random weights — swap in a converted checkpoint via Config for real use),

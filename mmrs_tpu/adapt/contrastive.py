@@ -1,7 +1,7 @@
 """CLIP contrastive training step, sharded over a (data, model) mesh.
 
 The reference never trains the towers (only the Tip-Adapter linear head,
-code/main_custom.py:148-247); the TPU framework adds full-tower contrastive
+code/main_custom.py:148-247); this framework adds full-tower contrastive
 fine-tuning as the flagship training path so galleries can be domain-adapted.
 
 Sharding layout (SPMD via jit in/out shardings; XLA inserts the collectives):
@@ -91,19 +91,16 @@ def make_train_step(
     learning_rate: float = 1e-5,
     weight_decay: float = 0.01,
     compute_dtype=jnp.bfloat16,
-    donate: bool | None = None,
+    donate: bool = True,
     remat: bool = False,
 ):
     """Returns (train_step, init_state). train_step is jitted with full
     DP x TP shardings over `mesh`.
 
-    `donate` defaults to True on TPU (halves param+opt memory) and False on
-    CPU: the forced-host-device-count CPU runtime deadlocks its collective
-    rendezvous when donated buffers alias across an 8-thread mesh.
+    `donate` (default True) updates params and optimizer state in place,
+    halving their device memory.
     `remat=True` rematerializes the loss (activation checkpointing) —
     trades FLOPs for HBM when batch x resolution outgrows memory."""
-    if donate is None:
-        donate = jax.default_backend() == "tpu"
     tx = optax.adamw(learning_rate, weight_decay=weight_decay)
     loss_fn_base = (jax.checkpoint(contrastive_loss, static_argnums=(3, 4))
                     if remat else contrastive_loss)

@@ -3,7 +3,7 @@
 Reference: `union_clip_by_threshold` (code/union_clip_llava2.py:134-271) and
 the merge_dataset.py batch variant (:259-311, :430-442).
 
-Design differences (TPU-first, documented per SURVEY.md §7):
+Design differences (documented per SURVEY.md §7):
   - the reference scores one image at a time (:172-260); here both towers
     score the WHOLE batch on device, then the OR-mask selects the (few)
     survivors that pay the expensive VLM call;

@@ -5,7 +5,7 @@ VLM "Does this image contain a {category}?", decode greedily at temperature
 0, and treat the answer as positive iff "yes" appears in the lowercased
 output (:127-130). SURVEY.md §7 stages the 7B VLM itself as a pluggable
 interface (endpoint or stub) first; the cascade semantics live here so any
-backend — a TPU-hosted VLM, an HTTP endpoint, or a test stub — slots in.
+backend — a device-hosted VLM, an HTTP endpoint, or a test stub — slots in.
 """
 
 from __future__ import annotations
@@ -102,7 +102,7 @@ def llava_v1_prompt_parts(query: str,
 
 
 class TPULLaVAVerifier:
-    """The VLM verifier hosted on TPU via models/llava.py.
+    """The VLM verifier hosted on the accelerator via models/llava.py.
 
     Needs: converted llava params, an LLaMA text tokenizer exposing
     `encode(text) -> List[int]` and `decode(ids) -> str` (e.g. a
@@ -117,59 +117,22 @@ class TPULLaVAVerifier:
                  eos_token: int = 2,
                  image_size: int = 336,
                  compute_dtype=None,
-                 attn_impl: str = "auto",
                  kv_dtype=None,
                  layers: str = "scan",
                  prefill_chunk: int | None = None,
                  decode_window: int | None = None,
                  early_stop: bool = True,
-                 decode_attn: str = "auto",
-                 prefill_attn: str = "auto",
                  draft_params=None,
                  draft_cfg=None,
                  draft_tokens: int = 4,
                  mesh=None,
                  shard_draft: bool | None = None):
-        import jax
         import jax.numpy as jnp
 
-        if attn_impl == "auto":
-            # fused Pallas MHA wins at the 336px tower's T=577 (see
-            # COVERAGE.md perf notes); CPU/tests fall back to the einsum.
-            # Under a mesh, auto stays XLA: pallas_call with GSPMD-
-            # partitioned operands has never run on real ICI (NEXT.md),
-            # so no auto rule may pick it — pass attn_impl="pallas"
-            # explicitly to measure it on hardware (VERDICT r3 #5).
-            attn_impl = ("pallas" if jax.default_backend() == "tpu"
-                         and mesh is None else "xla")
-        self.attn_impl = attn_impl
-        if decode_attn == "auto":
-            # measured at the 7B p576/b16 serving shape: XLA's fused
-            # convert+dot epilogues beat the Pallas cache-read kernel
-            # (653 vs 482 tok/s with layers="fori"; the kernel only wins
-            # at ~1B scale — see COVERAGE.md). Keep the einsum path.
-            decode_attn = "xla"
-        self.decode_attn = decode_attn
-        if prefill_attn == "auto":
-            # measured at the 7B p576/b16 chunked-prefill serving shape
-            # (bench_prefill.py): XLA 564 vs 601 ms kernel prefill, E2E
-            # dead even — the chunked path's statically-sliced reads
-            # already avoid the big f32 materializations. The fused
-            # chunk kernel (ops/decode_attention.chunk_attention) wins
-            # 15% only when prefill_chunk is None (725 -> 617 ms).
-            # layers="scan" must stay XLA: a pallas_call inside lax.scan
-            # hangs this platform's compiler (CLAUDE.md). Under a mesh,
-            # auto stays XLA (same untested-GSPMD rule as attn_impl).
-            prefill_attn = ("pallas" if prefill_chunk is None
-                            and layers in ("fori", "unroll")
-                            and jax.default_backend() == "tpu"
-                            and mesh is None else "xla")
-        self.prefill_attn = prefill_attn
         # int8 KV cache (llama.QKVCache) halves per-step KV traffic and
-        # HBM residency of the ~600-token multimodal prompts; layers=
+        # device residency of the ~600-token multimodal prompts; layers=
         # "fori" (in-place stacked-cache layer loop) + prefill_chunk are
-        # the measured-fast decode options at the 576-token multimodal
-        # prompt (see models/llama.greedy_generate + COVERAGE.md)
+        # the serving decode options (see models/llama.greedy_generate)
         self.kv_dtype = kv_dtype
         self.layers = layers
         self.prefill_chunk = prefill_chunk
@@ -201,6 +164,7 @@ class TPULLaVAVerifier:
         self.mesh = mesh
         self.shard_draft = shard_draft
         self._tp_gen = None
+        self._solo_gen = None
         # realized speculative acceptance (the number draft_tokens is
         # tuned against): accumulated at collect() time, exposed via
         # speculative_stats() and /v1/stats. The lock keeps the triple
@@ -243,23 +207,18 @@ class TPULLaVAVerifier:
                 fn = make_tp_llava_speculative_generate(
                     self.cfg, self.draft_cfg, self.mesh,
                     self.max_new_tokens, self.draft_tokens, self.eos_token,
-                    self.compute_dtype, attn_impl=self.attn_impl,
+                    self.compute_dtype,
                     kv_dtype=self.kv_dtype, layers=self.layers,
-                    prefill_chunk=self.prefill_chunk,
-                    decode_attn=self.decode_attn,
-                    prefill_attn=self.prefill_attn, return_stats=True)
+                    prefill_chunk=self.prefill_chunk, return_stats=True)
                 self._tp_gen = lambda im, pr, po: fn(
                     self.params, self.draft_params, im, pr, po)
             else:
                 fn = make_tp_llava_generate(
                     self.cfg, self.mesh, self.max_new_tokens,
-                    self.eos_token, self.compute_dtype,
-                    attn_impl=self.attn_impl, kv_dtype=self.kv_dtype,
+                    self.eos_token, self.compute_dtype, kv_dtype=self.kv_dtype,
                     layers=self.layers, prefill_chunk=self.prefill_chunk,
                     decode_window=self.decode_window,
-                    early_stop=self.early_stop,
-                    decode_attn=self.decode_attn,
-                    prefill_attn=self.prefill_attn)
+                    early_stop=self.early_stop)
                 self._tp_gen = lambda im, pr, po: fn(
                     self.params, im, pr, po)
         return self._tp_gen(images, pre, post)
@@ -272,23 +231,33 @@ class TPULLaVAVerifier:
         if self.mesh is not None:
             out = self._tp_generate(images, pre, post)
             return out if self.draft_params is not None else (out, None)
+        if self._solo_gen is None:
+            # one jitted program per verifier: the prefill chunks and the
+            # decode loop compile once, not op by op on every pack
+            import jax
+
+            if self.draft_params is not None:
+                self._solo_gen = jax.jit(
+                    lambda p, d, im, pr, po: llava.generate_speculative(
+                        p, d, im, pr, po, self.cfg, self.draft_cfg,
+                        self.max_new_tokens, self.draft_tokens,
+                        self.eos_token, self.compute_dtype,
+                        kv_dtype=self.kv_dtype, layers=self.layers,
+                        prefill_chunk=self.prefill_chunk,
+                        return_stats=True))
+            else:
+                self._solo_gen = jax.jit(
+                    lambda p, im, pr, po: (llava.generate(
+                        p, im, pr, po, self.cfg, self.max_new_tokens,
+                        self.eos_token, self.compute_dtype,
+                        kv_dtype=self.kv_dtype, layers=self.layers,
+                        prefill_chunk=self.prefill_chunk,
+                        decode_window=self.decode_window,
+                        early_stop=self.early_stop), None))
         if self.draft_params is not None:
-            return llava.generate_speculative(
-                self.params, self.draft_params, images, pre, post,
-                self.cfg, self.draft_cfg, self.max_new_tokens,
-                self.draft_tokens, self.eos_token, self.compute_dtype,
-                attn_impl=self.attn_impl, kv_dtype=self.kv_dtype,
-                layers=self.layers, prefill_chunk=self.prefill_chunk,
-                decode_attn=self.decode_attn,
-                prefill_attn=self.prefill_attn, return_stats=True)
-        return llava.generate(
-            self.params, images, pre, post, self.cfg, self.max_new_tokens,
-            self.eos_token, self.compute_dtype, attn_impl=self.attn_impl,
-            kv_dtype=self.kv_dtype, layers=self.layers,
-            prefill_chunk=self.prefill_chunk,
-            decode_window=self.decode_window, early_stop=self.early_stop,
-            decode_attn=self.decode_attn,
-            prefill_attn=self.prefill_attn), None
+            return self._solo_gen(self.params, self.draft_params, images,
+                                  pre, post)
+        return self._solo_gen(self.params, images, pre, post)
 
     def _record_spec(self, stats, batch_rows: int) -> None:
         """Fold one generate's speculative stats into the realized-
@@ -318,7 +287,7 @@ class TPULLaVAVerifier:
         the fraction of each verification pass's k+1 slots that actually
         shipped. 1.0 means the draft always agrees (the measured ceiling);
         tune `draft_tokens` until utilization stops paying for the extra
-        draft steps (see NEXT.md's breakeven-alpha notes)."""
+        draft steps."""
         with self._spec_lock:
             rounds, tokens, slots = (self._spec_rounds, self._spec_tokens,
                                      self._spec_slots)
@@ -339,7 +308,7 @@ class TPULLaVAVerifier:
 
         r = load_image(image_path, size=self.image_size, stack="hf")
         u8 = jnp.asarray(np.asarray(r.pixels)[None])
-        return normalize_images(u8, dtype=self.compute_dtype, impl="xla")
+        return normalize_images(u8, dtype=self.compute_dtype)
 
     def _prompt_ids(self, prompt: str):
         """Tokenize the llava_v1 template around the <image> slot: BOS only
@@ -391,7 +360,7 @@ class TPULLaVAVerifier:
         """Dispatch one batched VQA decode WITHOUT waiting for the result.
 
         Returns an opaque handle for `collect()`. The device array inside
-        is an async JAX dispatch: the TPU crunches while the host goes on
+        is an async JAX dispatch: the device computes while the host goes on
         to load/gate the next chunk — on one chip the device work is
         serial either way, but host-side image decode (the other big cost
         on this 1-core box) then overlaps it (gate->verify pipelining)."""
@@ -410,16 +379,37 @@ class TPULLaVAVerifier:
         if len(image_paths) % d:
             image_paths = list(image_paths) + [image_paths[0]] * (
                 d - len(image_paths) % d)
-        prompt = self.prompt_template.format(category=category)
-        pre_ids, post_ids = self._prompt_ids(prompt)
         images = jnp.concatenate(
             [self._load_image(p) for p in image_paths], axis=0)
+        return self._dispatch(images, category, n_real)
+
+    def _dispatch(self, images, category: str, n_real: int):
+        import jax.numpy as jnp
+
+        prompt = self.prompt_template.format(category=category)
+        pre_ids, post_ids = self._prompt_ids(prompt)
         b = images.shape[0]
         out, spec = self._generate(
             images,
             jnp.tile(jnp.asarray([pre_ids], jnp.int32), (b, 1)),
             jnp.tile(jnp.asarray([post_ids], jnp.int32), (b, 1)))
         return (out, spec, n_real)
+
+    def verify_pixels(self, pixels_u8, category: str):
+        """verify_batch for decoded images: uint8 [B, S, S, 3] at
+        `image_size` (no file decode on the host)."""
+        import jax.numpy as jnp
+
+        from mmrs_tpu.ops.preprocess import normalize_images
+
+        images = normalize_images(jnp.asarray(pixels_u8),
+                                  dtype=self.compute_dtype)
+        n_real = images.shape[0]
+        d = self._data_size()
+        if n_real % d:
+            images = jnp.concatenate(
+                [images, jnp.repeat(images[:1], d - n_real % d, axis=0)])
+        return self.collect(self._dispatch(images, category, n_real))
 
     def collect(self, handle):
         """Fetch + parse an async verify dispatch (see verify_batch_async)."""
@@ -437,7 +427,7 @@ class TPULLaVAVerifier:
 
     def verify_batch(self, image_paths, category: str,
                      fixed_batch: int | None = None):
-        """Batched VQA decode: one TPU dispatch for all gate survivors
+        """Batched VQA decode: one device dispatch for all gate survivors
         (vs the reference's one-image-at-a-time LLaVA loop,
         code/union_clip_llava2.py:172-260). Same prompt for every image, so
         the prompt tokens are shared and only images vary.

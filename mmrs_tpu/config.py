@@ -13,8 +13,6 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
-import yaml
-
 
 @dataclass
 class ModelConfig:
@@ -69,7 +67,7 @@ class SearchConfig:
     # auto-cap slot budget: smallest cap covering this fraction of rows
     # in buckets (the rest spill to the exact per-query scan). Small-Q
     # latency is spill-bound on skewed corpora — raising cover trades
-    # slot padding for spill bytes (measured at 10M: see COVERAGE.md).
+    # slot padding for spill bytes.
     # On skewed corpora the slots ceiling (ann_slots_frac, total slots
     # <= frac * rows) binds FIRST — raise both to actually cut spill.
     ann_cover: float = 0.98
@@ -189,16 +187,22 @@ def _from_dict(cls: Any, data: Dict[str, Any]) -> Any:
 
 def load(path: str) -> Config:
     """Load a Config from a YAML file."""
+    import yaml  # only config files need PyYAML, not the device path
+
     with open(path, "r", encoding="utf-8") as f:
         data = yaml.safe_load(f) or {}
     return _from_dict(Config, data)
 
 
 def loads(text: str) -> Config:
+    import yaml
+
     data = yaml.safe_load(text) or {}
     return _from_dict(Config, data)
 
 
 def dump(cfg: Config, path: str) -> None:
+    import yaml
+
     with open(path, "w", encoding="utf-8") as f:
         yaml.safe_dump(dataclasses.asdict(cfg), f, sort_keys=False, allow_unicode=True)

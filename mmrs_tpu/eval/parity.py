@@ -114,28 +114,22 @@ DIFFERENTIAL_TEXTS_CN = [
 ]
 
 
-def _compute_dtype():
-    import jax
-    import jax.numpy as jnp
-
-    # bf16 is the serving dtype on TPU; CPU (tests) verifies in f32
-    return jnp.bfloat16 if jax.default_backend() == "tpu" else jnp.float32
-
-
-def build_release_towers(rm, tokenizer=None):
+def build_release_towers(rm, tokenizer=None, dtype="float32"):
     """Encode callables from a loaded openai_clip / hf_clip ReleaseModel
-    (the pipeline.build_towers shape, but params come from the release)."""
+    (the pipeline.build_towers shape, but params come from the release).
+    `dtype` is the compute dtype the parity is checked in (float32 by
+    default: the gate compares against the reference's f32 numbers)."""
     import jax.numpy as jnp
 
     from mmrs_tpu.models import clip as clip_mod
     from mmrs_tpu.ops.preprocess import normalize_images
     from mmrs_tpu.pipeline import Towers
 
-    dtype = _compute_dtype()
+    dtype = jnp.dtype(dtype)
     params, ccfg = rm.params, rm.config
 
     def image_encode(pixels_u8):
-        x = normalize_images(jnp.asarray(pixels_u8), dtype=dtype, impl="xla")
+        x = normalize_images(jnp.asarray(pixels_u8), dtype=dtype)
         return np.asarray(clip_mod.encode_image(
             params, x, ccfg, compute_dtype=dtype), np.float32)
 
@@ -151,7 +145,7 @@ def build_release_towers(rm, tokenizer=None):
                   params=params, clip_config=ccfg, tokenizer=tokenizer)
 
 
-def build_cn_towers(clip_rm, bert_rm, bert_tokenizer=None):
+def build_cn_towers(clip_rm, bert_rm, bert_tokenizer=None, dtype="float32"):
     """The Chinese pair: HF CLIP image tower x Taiyi text tower
     (code/test_taiyi.py:9-27 — text features are the classifier logits)."""
     import jax.numpy as jnp
@@ -161,7 +155,7 @@ def build_cn_towers(clip_rm, bert_rm, bert_tokenizer=None):
     from mmrs_tpu.ops.preprocess import normalize_images
     from mmrs_tpu.pipeline import Towers
 
-    dtype = _compute_dtype()
+    dtype = jnp.dtype(dtype)
     vcfg = (clip_rm.config.vision if hasattr(clip_rm.config, "vision")
             else clip_rm.config)
     visual = (clip_rm.params["visual"] if "visual" in clip_rm.params
@@ -171,7 +165,7 @@ def build_cn_towers(clip_rm, bert_rm, bert_tokenizer=None):
               "logit_scale": jnp.asarray(ccfg.logit_scale_init, jnp.float32)}
 
     def image_encode(pixels_u8):
-        x = normalize_images(jnp.asarray(pixels_u8), dtype=dtype, impl="xla")
+        x = normalize_images(jnp.asarray(pixels_u8), dtype=dtype)
         return np.asarray(clip_mod.encode_image(
             params, x, ccfg, compute_dtype=dtype), np.float32)
 
@@ -310,8 +304,8 @@ def bert_vocab_differential(vocab_path: str, texts=None) -> dict:
 
 def int8_geometry_gate(params, ccfg, n_images: int = 16) -> dict:
     """int8 serving-tower gate on GIVEN params: embedding cosine vs the
-    f32 tower and top-1 retrieval agreement (on TPU this runs the real
-    MXU int8 path)."""
+    f32 tower and top-1 retrieval agreement (on the GPU this runs the
+    int8 tensor-core path)."""
     import jax
     import jax.numpy as jnp
 

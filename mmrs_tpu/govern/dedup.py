@@ -8,7 +8,7 @@ production disabled; here dry-run is the DEFAULT and destruction is opt-in):
     keeps the REFERENCE folder's copy, removes matches in the target folder.
   - perceptual (tool/find_repeated_in_same_folder.py): pHash+dHash+wHash,
     duplicate if ANY Hamming <= 5; keeps the LARGEST file.
-  - embedding (TPU-native semantic mode, SURVEY.md §7): L2-normalized
+  - embedding (semantic mode, SURVEY.md §7): L2-normalized
     encoder embeddings through the tiled `first_match` kernel; keep-first.
 
 Leakage removal (tool/delete repeated.py): dHash of every test image; train

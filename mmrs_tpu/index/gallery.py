@@ -221,7 +221,9 @@ def build_index(
     resume: bool = True,
 ) -> GalleryIndex:
     """Stream the dataset through `encode_fn` (uint8 pixels [B,S,S,3] ->
-    L2-normalized embeddings [B,D]) into a sharded on-disk index.
+    L2-normalized embeddings [B,D]) into a sharded on-disk index. Any
+    object with FolderDataset's `samples` and `batches()` serves as the
+    dataset of a fresh build.
 
     Quarantined (corrupt) images are dropped, mirroring the reference's
     error-label filter (CLIP/lab1.py:81)."""
@@ -240,9 +242,12 @@ def build_index(
     # count only successfully encoded images; to make resume exact we also
     # persist per-shard how many SAMPLES were consumed.
     done_samples = sum(s.get("samples", s["rows"]) for s in shards)
-    pending = dataset.samples[done_samples:]
-    ds = FolderDataset(pending, image_size=dataset.image_size,
-                       stack=dataset.stack, num_workers=dataset.num_workers)
+    ds = dataset
+    if done_samples:
+        ds = FolderDataset(dataset.samples[done_samples:],
+                           image_size=dataset.image_size,
+                           stack=dataset.stack,
+                           num_workers=dataset.num_workers)
     _stream_into(out_dir, shards, ds, encode_fn, batch_size, shard_rows)
     return GalleryIndex.load(out_dir)
 

@@ -1,13 +1,13 @@
-"""IVF (inverted-file) ANN index — sub-linear gallery search on TPU.
+"""IVF (inverted-file) ANN index — sub-linear gallery search.
 
 The reference scores every gallery row per query
 (`100. * image_features @ text_features.T`, code/search_image.py:105-117);
-our brute-force Pallas scan (ops/topk.py) already runs that at ~87% of the
-HBM roofline, which makes *bandwidth* the hard floor: a 10M-row bf16
-gallery is 10.24 GB of traffic per scan no matter how good the kernel is.
-This module goes sub-linear the TPU way:
+the brute-force scan (ops/topk.py) is bound by device-memory bandwidth,
+which makes *bandwidth* the hard floor: a 10M-row bf16 gallery is 10.24 GB
+of traffic per scan no matter how good the kernel is. This module goes
+sub-linear:
 
-  - **Spherical k-means on the MXU** (train on a row sample, one streamed
+  - **Spherical k-means** (train on a row sample, one streamed
     assignment pass over the full gallery) — all matmuls, fixed iteration
     count, jit-friendly.
   - **Static-shape buckets**: cluster c's rows live at `buckets[c, :cap]`
@@ -16,8 +16,9 @@ This module goes sub-linear the TPU way:
     overflow degrades cost, never recall.
   - **Search = one small centroid matmul + nprobe bucket reads**: per
     query, score the [C, D] centroids, take the top `nprobe` clusters, and
-    scan only those buckets (a scalar-prefetch Pallas kernel DMAs exactly
-    the probed buckets HBM->VMEM; the gather is never materialized).
+    scan only those buckets (a Triton kernel whose blocks each load their
+    own probed bucket id and read only that bucket; the gather is never
+    materialized).
     Traffic per query drops from N*D to ~nprobe*cap*D + C*D — 100x at
     10M rows / C=4096 / nprobe=32.
   - `nprobe == n_clusters` probes every bucket and (with the spill) is
@@ -41,10 +42,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
+from mmrs_tpu.ops.dispatch import resolve_impl
 from mmrs_tpu.ops.normalize import l2_normalize
-from mmrs_tpu.ops.topk import NEG_INF, _topk_merge
+from mmrs_tpu.ops.topk import NEG_INF, candidate_width, exact_dot_t, tile_topk
 from mmrs_tpu.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -82,13 +84,13 @@ class IVFIndex:
 
     With `quantize="int8"` (or True) at build, bucket/spill rows are
     symmetric per-row int8 (ops/quant.py convention) and `bucket_scales`/
-    `spill_scales` hold the per-slot f32 dequant factors — half the HBM
-    residency (2x rows per chip) at ~0.3% score error, same trade as the
+    `spill_scales` hold the per-slot f32 dequant factors — half the
+    residency (2x rows per card) at ~0.3% score error, same trade as the
     flat int8 gallery mode. With `quantize="int4"`, buckets hold PACKED
     int4 words in the flat gallery's transposed layout per bucket
-    ([C, Dp/8, cap] int32 — slots on lanes, word rows on sublanes, the
-    ops/quant4.py convention) and spill is one flat packed plane
-    ([Dp/8, S]) — quarter the residency (4x rows per chip, ~0.6% score
+    ([C, Dp/8, cap] int32, the ops/quant4.py convention) and spill is
+    one flat packed plane ([Dp/8, S]) — quarter the residency (4x rows
+    per card, ~0.6% score
     error), completing the capacity ladder inside the ANN index."""
 
     centroids: jnp.ndarray    # [C, Dp]  (L2-normalized)
@@ -139,7 +141,7 @@ def _spherical_kmeans(x: jnp.ndarray, k: int, iters: int, n_valid: int,
                       key: jnp.ndarray) -> jnp.ndarray:
     """Centroids [k, D] f32 from a normalized sample x [Mp, D] (rows >=
     n_valid are zero padding). Cosine assignment; E-step sums accumulate
-    chunk-by-chunk (one-hot matmuls — MXU work, no scatter), so the [M, k]
+    chunk-by-chunk (one-hot matmuls, no scatter), so the [M, k]
     one-hot never materializes whole."""
     mp, d = x.shape
     nc = mp // _TRAIN_CHUNK if mp % _TRAIN_CHUNK == 0 else -1
@@ -410,7 +412,7 @@ def build_ivf_streaming(
     stream itself (one extra pass). With `mesh`, bucket cap / spill pad
     round up to 8*n_shards, arrays allocate sharded (slot-sharding,
     parallel/ivf.py), and the fill scatters run under GSPMD — each chunk
-    broadcasts once over ICI and every shard keeps only its strip."""
+    is replicated once and every shard keeps only its strip."""
     if n <= 0:
         raise ValueError("empty gallery")
     if assignments is not None and centroids is None:
@@ -467,20 +469,11 @@ def build_ivf_streaming(
 
         n_shards = mesh.shape[DATA_AXIS]
         bucket_cap = _round_up(bucket_cap, 8 * n_shards)
-    if quant == "int4":
-        # slots live on LANES in the packed layout ([C, Dp/8, cap]):
-        # cap must tile to 128 lanes (and stay shard-divisible)
-        # slots live on LANES: the PER-SHARD strip (cap / n_shards under
-        # slot-sharding) must stay a 128-lane multiple for the probe
-        # kernel's block shape, so round cap to 128 * n_shards
-        bucket_cap = _round_up(bucket_cap, 128 * n_shards)
 
     bpos, spos, bucket_ids, spill_ids = _placement(assignments, n_clusters,
                                                    bucket_cap)
     n_spill = spill_ids.shape[0]
     s_pad = max(8, _round_up(n_spill, 8 * n_shards))
-    if quant == "int4":
-        s_pad = max(128, _round_up(n_spill, 128 * n_shards))
     item = {"": jnp.dtype(dtype).itemsize, "int8": 1, "int4": 0.5}[quant]
     log.info(
         "ivf: C=%d cap=%d -> %.2f GB buckets + %.2f GB spill (%d rows, "
@@ -574,105 +567,78 @@ def build_ivf_streaming(
 # -- search -------------------------------------------------------------------
 
 
-def _ivf_kernel(probe_ref, q_ref, b_ref, ids_ref, scale_ref, out_v_ref,
-                out_i_ref, run_v, run_i, *, k: int, quantized: bool):
+def _probe_kernel(*refs, cap: int, d: int, k: int, kp: int, tile_r: int,
+                  bk: int, quantized: bool):
+    """One block = one row tile of one probed bucket of one query: it
+    loads its own bucket id probe[q, p], scores the tile's rows against
+    the query row (f32 multiply-add over D chunks) and writes the tile's
+    top-k candidates."""
+    if quantized:
+        probe_ref, q_ref, b_ref, ids_ref, s_ref, ov_ref, oi_ref = refs
+    else:
+        probe_ref, q_ref, b_ref, ids_ref, ov_ref, oi_ref = refs
     qi = pl.program_id(0)
     pi = pl.program_id(1)
-    nq = pl.num_programs(0)
-    np_ = pl.num_programs(1)
-    qn = q_ref.shape[0]
+    ri = pl.program_id(2)
+    c = probe_ref[qi, pi]
+    start = ri * tile_r
+    rmask = start + jnp.arange(tile_r, dtype=jnp.int32) < cap
 
-    @pl.when((qi == 0) & (pi == 0))
-    def _init():
-        run_v[:] = jnp.full_like(run_v, NEG_INF)
-        run_i[:] = jnp.full_like(run_i, -1)
+    def chunk(j, acc):
+        kmask = j * bk + jnp.arange(bk) < d
+        qv = plt.load(q_ref.at[qi, pl.ds(j * bk, bk)], mask=kmask, other=0)
+        b = plt.load(b_ref.at[c, pl.ds(start, tile_r), pl.ds(j * bk, bk)],
+                     mask=rmask[:, None] & kmask[None, :], other=0)
+        prod = b.astype(jnp.float32) * qv.astype(jnp.float32)[None, :]
+        return acc + jnp.sum(prod, axis=1)
 
-    # Mosaic can't prove 8-alignment for a dynamic sublane slice, so this
-    # step's query/state row is extracted by mask+reduce over the small
-    # resident blocks (qn x Dp adds on the VPU — noise next to the DMA)
-    rowmask = (jax.lax.broadcasted_iota(jnp.int32, (qn, 1), 0) == qi)
-    q = jnp.sum(jnp.where(rowmask, q_ref[:], 0), axis=0,
-                keepdims=True)                      # [1, Dp]
-    b = b_ref[0]                                    # [cap, Dp]
+    scores = jax.lax.fori_loop(0, pl.cdiv(d, bk), chunk,
+                               jnp.zeros((tile_r,), jnp.float32))
+    ids = plt.load(ids_ref.at[c, pl.ds(start, tile_r)], mask=rmask, other=-1)
     if quantized:
-        # int8 rows convert in VMEM (the HBM read — the cost — is int8);
-        # per-slot dequant scales fold into the score row
-        b = b.astype(q.dtype)
-    scores = jax.lax.dot_general(
-        q, b, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32
-    )                                               # [1, cap]
-    if quantized:
-        scores = scores * scale_ref[0]              # [1, cap] f32
-    ids = ids_ref[0]                                # [1, cap]
+        # int8 rows: the device-memory read is int8; the per-slot dequant
+        # scales fold into the score row
+        scores = scores * plt.load(s_ref.at[c, pl.ds(start, tile_r)],
+                                   mask=rmask, other=0.0)
     scores = jnp.where(ids >= 0, scores, NEG_INF)
-
-    row_v = jnp.sum(jnp.where(rowmask, run_v[:], 0), axis=0, keepdims=True)
-    row_i = jnp.sum(jnp.where(rowmask, run_i[:], 0), axis=0, keepdims=True)
-    new_v, new_i = _topk_merge(
-        jnp.concatenate([row_v, scores], axis=1),
-        jnp.concatenate([row_i, ids], axis=1), k)
-    run_v[:] = jnp.where(rowmask, jnp.broadcast_to(new_v, (qn, k)), run_v[:])
-    run_i[:] = jnp.where(rowmask, jnp.broadcast_to(new_i, (qn, k)), run_i[:])
-
-    @pl.when((qi == nq - 1) & (pi == np_ - 1))
-    def _finish():
-        out_v_ref[:] = run_v[:]
-        out_i_ref[:] = run_i[:]
+    ov, oi = tile_topk(scores[None, :], k, kp, ids=ids[None, :])
+    ov_ref[...] = ov
+    oi_ref[...] = oi
 
 
 def _probe_buckets_pallas(q, probe, buckets, bucket_ids, scales, k: int,
+                          tile_r: int = 128, bk: int = 64,
                           interpret: bool = False):
-    """[Q, k] top-k over each query's probed buckets. probe [Q, P] int32
-    drives the bucket index map via scalar prefetch — only the probed
-    buckets ever leave HBM, nothing is gathered/materialized."""
+    """[Q, k] top-k over each query's probed buckets. Only the probed
+    buckets are read from device memory and nothing is gathered: each
+    block reads its own bucket id. XLA merges the per-(query, probe, row
+    tile) candidates."""
     qn = q.shape[0]
     c, cap, dp = buckets.shape
     p = probe.shape[1]
     quantized = scales is not None
-    # [C, 1, cap] so each step's block (1, 1, cap) equals the trailing
-    # array dims (the TPU block-shape rule for sub-(8,128) blocks)
-    ids3 = bucket_ids.reshape(c, 1, cap)
-    if quantized:
-        scales3 = scales.reshape(c, 1, cap)
-    else:  # dummy operand keeps one kernel signature
-        scales3 = jnp.zeros((1, 1, 8), jnp.float32)
-    s_cap = scales3.shape[2]
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(qn, p),
-        in_specs=[
-            pl.BlockSpec((qn, q.shape[1]), lambda i, j, pr: (0, 0)),
-            pl.BlockSpec((1, cap, dp), lambda i, j, pr: (pr[i, j], 0, 0)),
-            pl.BlockSpec((1, 1, cap), lambda i, j, pr: (pr[i, j], 0, 0)),
-            pl.BlockSpec((1, 1, s_cap),
-                         (lambda i, j, pr: (pr[i, j], 0, 0)) if quantized
-                         else (lambda i, j, pr: (0, 0, 0))),
-        ],
-        out_specs=(
-            pl.BlockSpec((qn, k), lambda i, j, pr: (0, 0)),
-            pl.BlockSpec((qn, k), lambda i, j, pr: (0, 0)),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((qn, k), jnp.float32),
-            pltpu.VMEM((qn, k), jnp.int32),
-        ],
-    )
-    out_v, out_i = pl.pallas_call(
-        functools.partial(_ivf_kernel, k=k, quantized=quantized),
-        grid_spec=grid_spec,
-        out_shape=(
-            jax.ShapeDtypeStruct((qn, k), jnp.float32),
-            jax.ShapeDtypeStruct((qn, k), jnp.int32),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * qn * p * cap * dp,
-            bytes_accessed=qn * p * cap * dp * buckets.dtype.itemsize,
-            transcendentals=0,
-        ),
+    tile_r = min(tile_r, max(16, pl.next_power_of_2(cap)))
+    bk = min(bk, max(16, pl.next_power_of_2(dp)))
+    kp = candidate_width(k)
+    nr = pl.cdiv(cap, tile_r)
+    args = [probe, q, buckets, bucket_ids] + ([scales] if quantized else [])
+    out_spec = pl.BlockSpec((None, None, 1, kp), lambda i, j, r: (i, j, r, 0))
+    ov, oi = pl.pallas_call(
+        functools.partial(_probe_kernel, cap=cap, d=dp, k=k, kp=kp,
+                          tile_r=tile_r, bk=bk, quantized=quantized),
+        grid=(qn, p, nr),
+        in_specs=[pl.no_block_spec] * len(args),
+        out_specs=(out_spec, out_spec),
+        out_shape=(jax.ShapeDtypeStruct((qn, p, nr, kp), jnp.float32),
+                   jax.ShapeDtypeStruct((qn, p, nr, kp), jnp.int32)),
+        compiler_params=plt.CompilerParams(num_warps=4, num_stages=3),
         interpret=interpret,
-    )(probe, q, buckets, ids3, scales3)
-    return out_v, out_i
+        name="ivf_probe_int8" if quantized else "ivf_probe",
+    )(*args)
+    ov = ov.reshape(qn, p * nr * kp)
+    oi = oi.reshape(qn, p * nr * kp)
+    vals, at = jax.lax.top_k(ov, k)
+    return vals, jnp.take_along_axis(oi, at, axis=1)
 
 
 def _probe_buckets_xla(q, probe, buckets, bucket_ids, scales, k: int):
@@ -686,10 +652,8 @@ def _probe_buckets_xla(q, probe, buckets, bucket_ids, scales, k: int):
         qv, pids = args
         b = jnp.take(buckets, pids, axis=0)          # [P, cap, Dp]
         ids = jnp.take(bucket_ids, pids, axis=0)     # [P, cap]
-        s = jax.lax.dot_general(
-            b.reshape(p * cap, -1).astype(qv.dtype), qv[None, :],
-            (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32)[:, 0]
+        s = exact_dot_t(b.reshape(p * cap, -1).astype(qv.dtype),
+                        qv[None, :])[:, 0]
         if scales is not None:
             s = s * jnp.take(scales, pids, axis=0).reshape(-1)
         s = jnp.where(ids.reshape(-1) >= 0, s, NEG_INF)
@@ -726,20 +690,16 @@ def _ivf_topk_body(q, centroids, buckets, bucket_ids, spill, spill_ids,
 
     quantized = bucket_scales is not None
     qd = q.astype(jnp.bfloat16 if quantized else buckets.dtype)
-    if impl == "pallas":
-        vals, ids = _probe_buckets_pallas(qd, probe, buckets, bucket_ids,
-                                          bucket_scales, k)
-    elif impl == "pallas_interpret":
-        vals, ids = _probe_buckets_pallas(qd, probe, buckets, bucket_ids,
-                                          bucket_scales, k, interpret=True)
-    else:
+    if impl == "xla":
         vals, ids = _probe_buckets_xla(qd, probe, buckets, bucket_ids,
                                        bucket_scales, k)
+    else:
+        vals, ids = _probe_buckets_pallas(
+            qd, probe, buckets, bucket_ids, bucket_scales, k,
+            interpret=impl == "pallas_interpret")
 
     # exact spill scan (tiny): overflow rows never cost recall
-    ss = jax.lax.dot_general(
-        qd, spill.astype(qd.dtype), (((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32)                 # [Q, S]
+    ss = exact_dot_t(qd, spill.astype(qd.dtype))            # [Q, S]
     if quantized:
         ss = ss * spill_scales[None, :]
     ss = jnp.where(spill_ids[None, :] >= 0, ss, NEG_INF)
@@ -752,108 +712,6 @@ def _ivf_topk_body(q, centroids, buckets, bucket_ids, spill, spill_ids,
     fv, fi = jax.lax.top_k(mv, k)
     fi = jnp.take_along_axis(mi, fi, axis=1)
     return jnp.where(fi < 0, NEG_INF, fv), fi
-
-
-def _ivf_kernel_q4(probe_ref, q_ref, qs_ref, rs_ref, b_ref, ids_ref,
-                   scale_ref, out_v_ref, out_i_ref, run_v, run_i, *,
-                   k: int):
-    """int4 bucket probe: the packed [1, Dp/8, cap] block unpacks via i32
-    nibble masks + sublane bitcast into the two int8 MXU operands (the
-    flat ops/quant4 kernel's math), scored against this step's query row
-    with the offset/scale epilogue, folded into the running top-k."""
-    from mmrs_tpu.ops.quant4 import MASK_HI, MASK_LO, _score_f32
-
-    qi = pl.program_id(0)
-    pi = pl.program_id(1)
-    nq = pl.num_programs(0)
-    np_ = pl.num_programs(1)
-    qn = q_ref.shape[0]
-
-    @pl.when((qi == 0) & (pi == 0))
-    def _init():
-        run_v[:] = jnp.full_like(run_v, NEG_INF)
-        run_i[:] = jnp.full_like(run_i, -1)
-
-    rowmask = (jax.lax.broadcasted_iota(jnp.int32, (qn, 1), 0) == qi)
-    # one live row per column -> the masked sum IS the row (int8-safe)
-    q = jnp.sum(jnp.where(rowmask, q_ref[:], 0), axis=0,
-                keepdims=True).astype(jnp.int8)         # [1, Dp]
-    qs = jnp.sum(jnp.where(rowmask, qs_ref[:], 0.0), axis=0,
-                 keepdims=True)                          # [1, 1]
-    rs = jnp.sum(jnp.where(rowmask, rs_ref[:], 0.0), axis=0,
-                 keepdims=True)                          # [1, 1]
-
-    w32 = b_ref[0]                                       # [Dp/8, cap]
-    lo = pltpu.bitcast(w32 & MASK_LO, jnp.int8)          # [Dp/2, cap]
-    hi = pltpu.bitcast(w32 & MASK_HI, jnp.int8)
-    h = lo.shape[0]
-    dlo = jax.lax.dot_general(q[:, :h], lo, (((1,), (0,)), ((), ())),
-                              preferred_element_type=jnp.int32)  # [1, cap]
-    dhi = jax.lax.dot_general(q[:, h:], hi, (((1,), (0,)), ((), ())),
-                              preferred_element_type=jnp.int32)
-    scores = _score_f32(dlo, dhi, rs, qs, scale_ref[0])  # [1, cap]
-    ids = ids_ref[0]                                     # [1, cap]
-    scores = jnp.where(ids >= 0, scores, NEG_INF)
-
-    row_v = jnp.sum(jnp.where(rowmask, run_v[:], 0), axis=0, keepdims=True)
-    row_i = jnp.sum(jnp.where(rowmask, run_i[:], 0), axis=0, keepdims=True)
-    new_v, new_i = _topk_merge(
-        jnp.concatenate([row_v, scores], axis=1),
-        jnp.concatenate([row_i, ids], axis=1), k)
-    run_v[:] = jnp.where(rowmask, jnp.broadcast_to(new_v, (qn, k)), run_v[:])
-    run_i[:] = jnp.where(rowmask, jnp.broadcast_to(new_i, (qn, k)), run_i[:])
-
-    @pl.when((qi == nq - 1) & (pi == np_ - 1))
-    def _finish():
-        out_v_ref[:] = run_v[:]
-        out_i_ref[:] = run_i[:]
-
-
-def _probe_buckets_pallas_q4(q_q, q_scale, rs_q, probe, buckets, bucket_ids,
-                             scales, k: int, interpret: bool = False):
-    """int4 scalar-prefetch probe: only the probed packed planes leave
-    HBM (quarter the int8 probe's traffic)."""
-    qn, dp = q_q.shape
-    c, dw, cap = buckets.shape
-    p = probe.shape[1]
-    ids3 = bucket_ids.reshape(c, 1, cap)
-    scales3 = scales.reshape(c, 1, cap)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(qn, p),
-        in_specs=[
-            pl.BlockSpec((qn, dp), lambda i, j, pr: (0, 0)),
-            pl.BlockSpec((qn, 1), lambda i, j, pr: (0, 0)),
-            pl.BlockSpec((qn, 1), lambda i, j, pr: (0, 0)),
-            pl.BlockSpec((1, dw, cap), lambda i, j, pr: (pr[i, j], 0, 0)),
-            pl.BlockSpec((1, 1, cap), lambda i, j, pr: (pr[i, j], 0, 0)),
-            pl.BlockSpec((1, 1, cap), lambda i, j, pr: (pr[i, j], 0, 0)),
-        ],
-        out_specs=(
-            pl.BlockSpec((qn, k), lambda i, j, pr: (0, 0)),
-            pl.BlockSpec((qn, k), lambda i, j, pr: (0, 0)),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((qn, k), jnp.float32),
-            pltpu.VMEM((qn, k), jnp.int32),
-        ],
-    )
-    out_v, out_i = pl.pallas_call(
-        functools.partial(_ivf_kernel_q4, k=k),
-        grid_spec=grid_spec,
-        out_shape=(
-            jax.ShapeDtypeStruct((qn, k), jnp.float32),
-            jax.ShapeDtypeStruct((qn, k), jnp.int32),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * qn * p * cap * dp,
-            bytes_accessed=qn * p * cap * dp // 2,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(probe, q_q, q_scale[:, None], rs_q[:, None], buckets, ids3, scales3)
-    return out_v, out_i
 
 
 def _probe_buckets_xla_q4(q_q, q_scale, rs_q, probe, buckets, bucket_ids,
@@ -913,13 +771,8 @@ def _ivf_topk_body_q4(q, centroids, buckets, bucket_ids, spill, spill_ids,
     probe = probe.astype(jnp.int32)
 
     q_q, q_scale, rs_q = _prep_queries(q.astype(jnp.float32))
-    if impl in ("pallas", "pallas_interpret"):
-        vals, ids = _probe_buckets_pallas_q4(
-            q_q, q_scale, rs_q, probe, buckets, bucket_ids, bucket_scales,
-            k, interpret=impl == "pallas_interpret")
-    else:
-        vals, ids = _probe_buckets_xla_q4(
-            q_q, q_scale, rs_q, probe, buckets, bucket_ids, bucket_scales, k)
+    vals, ids = _probe_buckets_xla_q4(
+        q_q, q_scale, rs_q, probe, buckets, bucket_ids, bucket_scales, k)
 
     # exact spill scan over the flat packed plane
     lo, hi = _unpack_planes_xla(spill)                      # [Dp/2, S]
@@ -942,6 +795,17 @@ def _ivf_topk_body_q4(q, centroids, buckets, bucket_ids, spill, spill_ids,
     return jnp.where(fi < 0, NEG_INF, fv), fi
 
 
+def probe_impl(quant: str, impl: str) -> str:
+    """ops/dispatch.py's rule for the bucket probe. int4 buckets have no
+    kernel: they always take the XLA form, and asking for the kernel
+    raises."""
+    if quant != "int4":
+        return resolve_impl("ivf_probe", impl)
+    if impl not in ("auto", "xla"):
+        raise ValueError(f"int4 IVF buckets have no kernel (impl={impl!r})")
+    return "xla"
+
+
 @functools.partial(jax.jit, static_argnames=("k", "nprobe", "impl",
                                              "quant"))
 def _ivf_topk(q, centroids, buckets, bucket_ids, spill, spill_ids,
@@ -958,7 +822,7 @@ def ivf_topk(
     ivf: IVFIndex,
     k: int = 10,
     nprobe: int = 0,          # 0 = auto
-    impl: str = "auto",       # pallas | xla | pallas_interpret | auto
+    impl: str = "auto",       # ops/dispatch.py
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Top-k (cosines [Q, k] f32, global row ids [Q, k] int32), sorted
     descending — the cosine_topk contract, restricted to probed buckets
@@ -967,8 +831,7 @@ def ivf_topk(
         nprobe = auto_nprobe(ivf.n_clusters)
     nprobe = min(nprobe, ivf.n_clusters)
     k = min(k, ivf.n_total)
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
+    impl = probe_impl(ivf.quant, impl)
     return _ivf_topk(queries, ivf.centroids, ivf.buckets, ivf.bucket_ids,
                      ivf.spill, ivf.spill_ids, ivf.bucket_scales,
                      ivf.spill_scales, k, nprobe, impl, quant=ivf.quant)
@@ -1324,10 +1187,8 @@ def load_ivf(directory: str, embeddings=None, dtype=jnp.bfloat16,
         n_shards = mesh.shape[DATA_AXIS]
         shardings = ivf_shardings(mesh, quant=quant)
         # slot-sharding needs shard-divisible cap/spill: pad with dead
-        # slots (id -1, zero rows — masked like any other padding);
-        # int4 strips sit on lanes, so each must stay a 128-multiple
-        cap_p = _round_up(cap, 128 * n_shards if quant == "int4"
-                          else n_shards)
+        # slots (id -1, zero rows — masked like any other padding)
+        cap_p = _round_up(cap, n_shards)
         if cap_p != cap:
             bucket_ids = np.pad(bucket_ids, ((0, 0), (0, cap_p - cap)),
                                 constant_values=-1)

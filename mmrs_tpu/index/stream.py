@@ -8,9 +8,9 @@ chunk come back, merged on host at the end. Device residency is bounded by
 `prefetch + 1` chunks regardless of index size; host residency by the
 memmap window.
 
-A 10M x 512 index fully resident in bf16 is 10 GB — it still fits one v5e
-chip (use SearchEngine / sharded_cosine_topk for that, or int8 for 2x the
-rows). This module is for the tier beyond that, or for hosts/chips where
+A 10M x 512 index fully resident in bf16 is 10 GB — it still fits one
+card (use SearchEngine / sharded_cosine_topk for that, or int8 for 2x the
+rows). This module is for the tier beyond that, or for hosts/cards where
 the index must stay on disk.
 """
 
@@ -70,9 +70,9 @@ def streaming_topk(
         q_dev = jnp.asarray(np.asarray(queries), device_dtype)
 
     # Upload chunks in their SOURCE dtype and cast on device: numpy's
-    # f16->bf16 host conversion runs at ~0.3 GB/s single-threaded, well
-    # below the host->device link, so a host-side cast would bottleneck
-    # the whole stream. XLA casts at HBM speed.
+    # f16->bf16 host conversion is single-threaded and slower than the
+    # host->device link, so a host-side cast would bottleneck the whole
+    # stream. XLA casts at device-memory speed.
     cast = jax.jit(lambda c: c.astype(device_dtype))
 
     pending: deque = deque()      # (offset, vals_dev, idxs_dev, chunk_ref)

@@ -3,16 +3,12 @@
 The reference serves nothing (batch scripts only); this is the batching
 engine the production HTTP layer (serve.py) puts in front of the device.
 Concurrent requests are coalesced into single device dispatches: a gallery
-top-k scan is HBM-bound, so queries that arrive together ride one fused
-kernel launch for ~the price of one (the measured 43.5k QPS library number
-comes from exactly this batched-dispatch shape — COVERAGE.md).
+top-k scan is bound by device-memory bandwidth, so queries that arrive
+together ride one fused kernel launch for ~the price of one.
 
 One worker thread per batcher drains a queue, groups compatible work items
 (same `key`, e.g. same top-k), and calls a user handler once per group.
-All device interaction therefore happens on a single thread — which is
-also what keeps remote-runtime transports safe (concurrent result fetches
-from many server threads can deadlock tunneled TPU clients; a lone worker
-fetches serially by construction).
+All device interaction therefore happens on a single thread.
 """
 
 from __future__ import annotations

@@ -44,8 +44,7 @@ def init(key: jax.Array, cfg: CLIPConfig, dtype=jnp.float32) -> Params:
 
 
 @partial(jax.jit,
-         static_argnames=("cfg", "compute_dtype", "normalize", "unroll",
-                          "attn_impl", "mlp_impl"))
+         static_argnames=("cfg", "compute_dtype", "normalize", "unroll"))
 def encode_image(
     params: Params,
     images: jnp.ndarray,
@@ -53,11 +52,9 @@ def encode_image(
     compute_dtype=jnp.bfloat16,
     normalize: bool = True,
     unroll: int = 1,
-    attn_impl: str = "xla",
-    mlp_impl: str = "xla",
 ) -> jnp.ndarray:
     feats = vit.apply(params["visual"], images, cfg.vision, compute_dtype,
-                      unroll=unroll, attn_impl=attn_impl, mlp_impl=mlp_impl)
+                      unroll=unroll)
     return l2_normalize(feats) if normalize else feats
 
 

@@ -3,7 +3,7 @@
 The reference loads pretrained weights via `clip.load("ViT-B/32")`
 (code/test_clip.py:6) and HF `CLIPModel`/`BertForSequenceClassification`
 (code/test_taiyi.py:11-17). These converters map either checkpoint format
-into our stacked-layer JAX pytrees so the same weights run on TPU.
+into our stacked-layer JAX pytrees so the same weights run in JAX.
 
 All inputs are plain dicts of numpy arrays (call `.numpy()` on torch tensors
 first, or use `state_dict_to_numpy`). Golden-parity tests construct a

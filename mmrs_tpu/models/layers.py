@@ -1,6 +1,6 @@
-"""Shared transformer building blocks (functional, MXU-friendly).
+"""Shared transformer building blocks (functional, tensor-core friendly).
 
-Design rules (TPU-first, see /opt/skills/guides/pallas_guide.md):
+Design rules:
   - matmuls run in the compute dtype (bf16 by default) with f32 accumulation
     via `preferred_element_type`;
   - LayerNorm and softmax run in f32 regardless of compute dtype;
@@ -23,9 +23,9 @@ Params = Dict[str, Any]
 class QTensor(NamedTuple):
     """int8 weight + per-output-channel f32 scale (w ~= q * s).
 
-    v5e's MXU runs int8 x int8 -> int32 at 2x the bf16 rate (394 TOPS vs
-    197 TFLOPS), so the serving towers can trade one elementwise
-    dynamic-quantization pass per matmul for half the MXU time. A NamedTuple
+    Tensor cores run int8 x int8 -> int32 at twice the bf16 rate, so the
+    serving towers can trade one elementwise dynamic-quantization pass per
+    matmul for half the matmul time. A NamedTuple
     is already a pytree, so stacked per-layer QTensors scan like plain
     arrays and ship through jit argument trees unchanged.
     """
@@ -47,13 +47,14 @@ class QTensor4(NamedTuple):
     """int4 weight (two nibbles per int8 byte) + per-(K-group, out-channel)
     scales (w ~= unpack(packed) * s[group]).
 
-    Decode is weight-bandwidth-bound (the 7B int8 stream is 6.9 GB/step,
-    NEXT.md #4), so int4 halves the HBM bytes that set the decode floor.
+    Decode is weight-bandwidth-bound (the 7B int8 weights are streamed once
+    per step), so int4 halves the bytes that set the decode floor.
     Group-wise scales along the contraction dim (AWQ/GPTQ convention,
     default 128) keep the quantization usable where one per-channel scale
     cannot. Rows 2i/2i+1 of the logical [K, N] kernel pack into byte row i
-    (low/high nibble); the dot runs bf16 after an in-VMEM unpack — the MXU
-    rate is not the bottleneck, the weight stream is."""
+    (low/high nibble); the dot runs bf16 after an unpack fused into the
+    operand read — the matmul rate is not the bottleneck, the weight
+    stream is."""
 
     packed: jnp.ndarray            # int8 [..., K//2, N]
     s: jnp.ndarray                 # f32/bf16 [..., K//G, N]
@@ -96,12 +97,7 @@ def unpack_int4(kernel: QTensor4, dtype=jnp.bfloat16) -> jnp.ndarray:
 def _quantize_act(x: jnp.ndarray):
     """Dynamic per-row symmetric int8 quantization of activations.
 
-    The f32 upcast feeding both the reduce and the round looks like a
-    relayout-copy source in traces, but a reduce-on-own-dtype variant
-    measured NEUTRAL on chip (interleaved A/B, scripts/probe_quantfix_ab:
-    16.09 vs 16.05 ms/batch median) — XLA fuses the upcast either way;
-    the copies the trace blames on this line belong to the projection
-    operands (fixed by the head-outermost layout in `attention`)."""
+    XLA fuses the f32 upcast feeding both the reduce and the round."""
     x32 = x.astype(jnp.float32)
     sx = jnp.maximum(jnp.max(jnp.abs(x32), axis=-1, keepdims=True),
                      1e-12) / 127.0
@@ -123,7 +119,7 @@ def _int8_matmul(xq: jnp.ndarray, sx: jnp.ndarray, kernel: QTensor, bias,
 
 def _dense_int8(x: jnp.ndarray, kernel: QTensor, bias,
                 compute_dtype: jnp.dtype) -> jnp.ndarray:
-    """Dynamic per-row activation quant -> int8 MXU matmul -> rescale."""
+    """Dynamic per-row activation quant -> int8 matmul -> rescale."""
     xq, sx = _quantize_act(x)
     return _int8_matmul(xq, sx, kernel, bias, compute_dtype)
 
@@ -207,7 +203,6 @@ def attention(
     heads: int,
     mask: jnp.ndarray | None,   # additive f32 mask broadcastable to [B, H, Q, K]
     compute_dtype: jnp.dtype,
-    attn_impl: str = "xla",     # "xla" | "pallas" | "pallas_interpret"
 ) -> jnp.ndarray:
     b, t, w = x.shape
     hd = w // heads
@@ -219,30 +214,8 @@ def attention(
     # HEAD-OUTERMOST projections: einsum btw,whd->hbtd asks the matmul for
     # the [H,B,T,hd] output whose two MAJOR dims are the score einsum's
     # batch dims — the layout a standard batched matmul wants — so layout
-    # assignment keeps the operand copies cheap. r2 measured the head-major
-    # bhtd form at +6.8% over naive reshape; r5 re-traced and found bhtd
-    # still paying 2.6-2.9 ms/batch of {0,3,2,1}->{3,2,1,0} operand copies
-    # in the ViT-B/32 scan; hbtd is +5-6% over bhtd for BOTH dtypes
-    # (scripts/probe_attn_layouts.py: bf16 16.96->16.02 ms/batch, int8
-    # 16.52->15.73 on v5e).
+    # assignment keeps the operand copies cheap.
     int8 = isinstance(p["wq"], QTensor)
-
-    if attn_impl != "xla" and mask is None:
-        # fused short-seq kernel (wins from T~257 up): it wants the natural
-        # [B, T, W] layout, so project with plain dense (no head-major)
-        from mmrs_tpu.ops.attention import mha_short_seq
-
-        if int8:
-            xq, sx = _quantize_act(x)
-            q = _int8_matmul(xq, sx, p["wq"], p["bq"], cd)
-            k = _int8_matmul(xq, sx, p["wk"], p["bk"], cd)
-            v = _int8_matmul(xq, sx, p["wv"], p["bv"], cd)
-        else:
-            q = dense(x, p["wq"], p["bq"], cd)
-            k = dense(x, p["wk"], p["bk"], cd)
-            v = dense(x, p["wv"], p["bv"], cd)
-        out = mha_short_seq(q * scale, k, v, heads, impl=attn_impl)
-        return dense(out, p["wo"], p["bo"], cd)
 
     if int8:
         # quantize the (shared) layer input once for all three projections
@@ -275,10 +248,8 @@ def attention(
     if mask is not None:
         logits = logits + _mask_hb(mask)
     # Softmax in the compute dtype: with bf16 serving this removes the
-    # [H,B,T,T] f32 materialization (measured 10.3k -> 12.7k img/s for
-    # ViT-B/32; embedding cosine to the f32 tower unchanged at 0.99995).
-    # f32 compute keeps f32 softmax, so CPU parity tests see the exact
-    # reference math.
+    # [H,B,T,T] f32 materialization. f32 compute keeps f32 softmax, so CPU
+    # parity tests see the exact reference math.
     probs = jax.nn.softmax(logits.astype(cd), axis=-1)
     out = jnp.einsum("hbts,hbsd->hbtd", probs, v,
                      preferred_element_type=jnp.float32).astype(cd)
@@ -293,26 +264,8 @@ def attention(
     return (y + p["bo"].astype(jnp.float32)).astype(cd)
 
 
-def mlp(x: jnp.ndarray, p: Params, act, compute_dtype: jnp.dtype,
-        mlp_impl: str = "xla") -> jnp.ndarray:
-    if mlp_impl != "xla" and isinstance(p["w1"], QTensor):
-        # one fused Pallas kernel: quant -> int8 w1 -> GELU -> quant ->
-        # int8 w2, everything in VMEM (ops/mlp_int8.py). Measured 0.38 vs
-        # 0.44 ms/layer for XLA's form at the ViT-B/32 serving batch, but
-        # END-TO-END it LOSES (16.71 vs 15.7-16.1 ms/batch on chip):
-        # pallas_call inside lax.scan hangs Mosaic here, and the unrolled
-        # Python-loop tower forfeits more scan pipelining than the kernel
-        # saves at 12 layers. Kept opt-in for deeper towers; default xla.
-        from mmrs_tpu.ops.mlp_int8 import mlp_int8_fused
-
-        b, t, w = x.shape
-        act_name = "quick_gelu" if act is quick_gelu else "gelu"
-        y = mlp_int8_fused(
-            x.reshape(b * t, w).astype(compute_dtype),
-            p["w1"].q, p["w1"].s, p["b1"], p["w2"].q, p["w2"].s, p["b2"],
-            act=act_name,
-            interpret=(mlp_impl == "pallas_interpret"))
-        return y.reshape(b, t, p["w2"].q.shape[-1])
+def mlp(x: jnp.ndarray, p: Params, act,
+        compute_dtype: jnp.dtype) -> jnp.ndarray:
     h = dense(x, p["w1"], p["b1"], compute_dtype)
     h = act(h)
     return dense(h, p["w2"], p["b2"], compute_dtype)
@@ -325,14 +278,12 @@ def pre_ln_block(
     mask: jnp.ndarray | None,
     act,
     compute_dtype: jnp.dtype,
-    attn_impl: str = "xla",
-    mlp_impl: str = "xla",
 ) -> jnp.ndarray:
     """CLIP-style pre-LayerNorm residual block."""
     x = x + attention(layer_norm(x, p["ln1_scale"], p["ln1_bias"]), p["attn"],
-                      heads, mask, compute_dtype, attn_impl)
+                      heads, mask, compute_dtype)
     x = x + mlp(layer_norm(x, p["ln2_scale"], p["ln2_bias"]), p["mlp"],
-                act, compute_dtype, mlp_impl)
+                act, compute_dtype)
     return x
 
 
@@ -344,30 +295,13 @@ def scan_blocks(
     act,
     compute_dtype: jnp.dtype,
     unroll: int = 1,
-    attn_impl: str = "xla",
-    mlp_impl: str = "xla",
 ) -> jnp.ndarray:
-    """Run all transformer blocks over stacked per-layer params.
-
-    Default: one lax.scan (single compiled layer, minimal compile time).
-    With a Pallas attention or MLP impl the layers run as a Python loop
-    over static slices of the stacked params instead — on this platform a
-    pallas_call inside lax.scan hangs Mosaic compilation, and the serving
-    towers are shallow enough (12-24 layers) that the unrolled graph
-    compiles fine.
-    """
-    if attn_impl.startswith("pallas") or mlp_impl.startswith("pallas"):
-        n_layers = jax.tree.leaves(stacked)[0].shape[0]
-        h = x
-        for i in range(n_layers):
-            layer = jax.tree.map(lambda a: a[i], stacked)
-            h = pre_ln_block(h, layer, heads, mask, act, compute_dtype,
-                             attn_impl, mlp_impl)
-        return h
+    """Run all transformer blocks over stacked per-layer params in one
+    lax.scan (a single compiled layer, minimal compile time)."""
 
     def body(h, layer_params):
         return pre_ln_block(h, layer_params, heads, mask, act,
-                            compute_dtype, attn_impl=attn_impl), None
+                            compute_dtype), None
 
     out, _ = jax.lax.scan(body, x, stacked, unroll=unroll)
     return out

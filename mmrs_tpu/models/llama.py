@@ -1,8 +1,8 @@
-"""LLaMA-family decoder with KV cache — the TPU-hosted VLM language model.
+"""LLaMA-family decoder with KV cache — the device-hosted VLM language model.
 
 The reference runs LLaVA-v1.5-7b (LLaMA-2 decoder) through the `llava`
 package on a CUDA GPU in 8-bit (code/test_llava.py:8-13). Here the decoder
-is implemented TPU-first so the verifier stage can be hosted on the mesh:
+is implemented in JAX so the verifier stage can be hosted on the mesh:
 
   - stacked-layer params + lax.scan body (single compiled layer);
   - static-shape KV cache [L, B, MAX, KVH, HD] updated with
@@ -32,12 +32,13 @@ class QKVCache(NamedTuple):
     """int8 KV cache: values + per-(batch, kv-head, position) f32 scales.
 
     Decode reads the whole cache every step, so at 7B/batch-8/S=640 the
-    bf16 cache is ~2.7 GB of the ~9.6 GB each step streams from HBM.
+    bf16 cache is ~2.7 GB of the ~9.6 GB each step streams from device
+    memory.
     Storing int8 halves that; the scales are factored OUT of both
     attention dots (applied to the small [B,KVH,G,T,S] logits/probs
-    tensors instead), so the MXU reads raw int8 with the bf16 convert
+    tensors instead), so the matmul reads raw int8 with the bf16 convert
     fused into the dot — no dequantized copy of the cache is ever
-    materialized. The freed HBM also doubles the feasible batch, which
+    materialized. The freed memory also doubles the feasible batch, which
     amortizes the (dominant) weight read. Mirrors the reference's 8-bit
     serving intent (code/test_llava.py:13 load_8bit=True) applied to the
     cache rather than just the weights.
@@ -147,10 +148,7 @@ class LlamaConfig:
 LLAMA2_7B = LlamaConfig()
 
 # 1.1B draft-class config (TinyLlama-1.1B layout: same 32k llama tokenizer,
-# GQA 32q/4kv). Used as the speculative draft next to the 7B verifier —
-# bench_spec.py measured 4.08 ms/draft-step vs 11.28 ms/7B-step at b8, so a
-# k=4 round breaks even at per-draft acceptance 0.763 and reaches 1,134
-# tok/s at full acceptance (COVERAGE.md).
+# GQA 32q/4kv). Used as the speculative draft next to the 7B verifier.
 LLAMA_1B = LlamaConfig(vocab_size=32000, dim=2048, layers=22, heads=32,
                        kv_heads=4, mlp_dim=5632)
 
@@ -190,9 +188,6 @@ def _attn_block(
     cfg: LlamaConfig,
     compute_dtype,
     kv_limit: int | None = None,    # STATIC: attend only to cache[:kv_limit]
-    decode_attn: str = "xla",       # "pallas": fused cache-read kernel at T=1
-    prefill_attn: str = "xla",      # "pallas": fused causal chunk kernel at
-                                    # T>1 (ops/decode_attention.chunk_attention)
     layer_idx=None,                 # caches are STACKED [L, ...]; this
                                     # layer's rows are written in place
                                     # and read through fused slices
@@ -260,87 +255,37 @@ def _attn_block(
     # attention einsums' batch dims (b, kvh) lead on the cache side, so the
     # per-step cache reads are contiguous — the [B,S,KVH,HD] layout made
     # XLA read the whole cache strided inside the scoring fusion every
-    # decode step (trace-verified; this layout: 7B int8 543 -> measured
-    # below, see bench_vlm.py). With an int8 cache the convert-to-bf16 is
+    # decode step. With an int8 cache the convert-to-bf16 is
     # fused into the dot's operand read and the per-position scale is
     # applied to the [B,KVH,G,T,S] logits afterwards — the cache itself
-    # crosses HBM as int8.
+    # crosses device memory as int8.
     group = nh // kvh
     qg = q.reshape(b, t, kvh, group, hd).transpose(0, 2, 3, 1, 4)
-    if decode_attn == "pallas" and t == 1:
-        # Fused decode-attention: the kernel streams the raw int8 cache
-        # HBM->VMEM once per step and converts in-VMEM — no int8->bf16
-        # convert fusions materialize (ops/decode_attention.py).
-        from mmrs_tpu.ops.decode_attention import decode_attention
+    logits = jnp.einsum("bkgth,bksh->bkgts", qg, ck.astype(cd),
+                        preferred_element_type=jnp.float32)
+    if int8_kv:
+        logits = logits * read_k.s[:, :, None, None, :]
+    logits = logits / jnp.sqrt(jnp.float32(hd))
 
-        q1 = qg[:, :, :, 0].astype(jnp.bfloat16)          # [B, KVH, G, HD]
-        if layer_idx is not None and kv_limit is None:
-            # fori form: the kernel reads THIS layer's rows straight out
-            # of the stacked cache (scalar-prefetch index map, no slice)
-            if int8_kv:
-                out = decode_attention(q1, cache_k.q, cache_k.s,
-                                       cache_v.q, cache_v.s, pos_offset,
-                                       layer=layer_idx)
-            else:
-                out = decode_attention(q1, cache_k, None, cache_v, None,
-                                       pos_offset, layer=layer_idx)
-        elif int8_kv:
-            out = decode_attention(q1, read_k.q, read_k.s,
-                                   read_v.q, read_v.s, pos_offset)
-        else:
-            out = decode_attention(q1, read_k, None, read_v, None,
-                                   pos_offset)
-        out = out[:, :, :, None, :].astype(cd)            # [B,KVH,G,1,HD]
-    elif prefill_attn == "pallas" and t > 1:
-        # Fused causal chunk attention: scores/probs stay in VMEM and the
-        # stacked cache streams raw (no per-layer slice-out squeeze copy —
-        # 39 ms of the 7B p576 prefill in the XLA form, trace-measured).
-        from mmrs_tpu.ops.decode_attention import chunk_attention
+    # causal + validity mask over the cache timeline (cache may be
+    # sized below cfg.max_seq — greedy_generate right-sizes it). `pos`
+    # is the [B, T] query-position grid, so per-row offsets mask
+    # correctly too.
+    key_pos = jnp.arange(cache_slots)[None, None, :]  # [1, 1, CACHE]
+    mask = key_pos <= pos[:, :, None]                 # [B, T, CACHE]
+    logits = jnp.where(mask[:, None, None, :, :], logits, -jnp.inf)
 
-        qb = qg.astype(jnp.bfloat16)                      # [B,KVH,G,T,HD]
-        if layer_idx is not None:
-            if int8_kv:
-                out = chunk_attention(qb, cache_k.q, cache_k.s,
-                                      cache_v.q, cache_v.s, pos_offset,
-                                      layer=layer_idx, kv_limit=kv_limit)
-            else:
-                out = chunk_attention(qb, cache_k, None, cache_v, None,
-                                      pos_offset, layer=layer_idx,
-                                      kv_limit=kv_limit)
-        elif int8_kv:
-            out = chunk_attention(qb, view_k.q, view_k.s,
-                                  view_v.q, view_v.s, pos_offset,
-                                  kv_limit=kv_limit)
-        else:
-            out = chunk_attention(qb, view_k, None, view_v, None,
-                                  pos_offset, kv_limit=kv_limit)
-        out = out.astype(cd)                              # [B,KVH,G,T,HD]
+    probs = jax.nn.softmax(logits, axis=-1)
+    if int8_kv:
+        # fold V's dequant scale into the (small) probs tensor, in f32
+        # straight off the softmax so no extra materialization
+        probs = probs * read_v.s[:, :, None, None, :]
+        cv = read_v.q
     else:
-        logits = jnp.einsum("bkgth,bksh->bkgts", qg, ck.astype(cd),
-                            preferred_element_type=jnp.float32)
-        if int8_kv:
-            logits = logits * read_k.s[:, :, None, None, :]
-        logits = logits / jnp.sqrt(jnp.float32(hd))
-
-        # causal + validity mask over the cache timeline (cache may be
-        # sized below cfg.max_seq — greedy_generate right-sizes it). `pos`
-        # is the [B, T] query-position grid, so per-row offsets mask
-        # correctly too.
-        key_pos = jnp.arange(cache_slots)[None, None, :]  # [1, 1, CACHE]
-        mask = key_pos <= pos[:, :, None]                 # [B, T, CACHE]
-        logits = jnp.where(mask[:, None, None, :, :], logits, -jnp.inf)
-
-        probs = jax.nn.softmax(logits, axis=-1)
-        if int8_kv:
-            # fold V's dequant scale into the (small) probs tensor, in f32
-            # straight off the softmax so no extra materialization
-            probs = probs * read_v.s[:, :, None, None, :]
-            cv = read_v.q
-        else:
-            cv = read_v
-        probs = probs.astype(cd)
-        out = jnp.einsum("bkgts,bksh->bkgth", probs, cv.astype(cd),
-                         preferred_element_type=jnp.float32).astype(cd)
+        cv = read_v
+    probs = probs.astype(cd)
+    out = jnp.einsum("bkgts,bksh->bkgth", probs, cv.astype(cd),
+                     preferred_element_type=jnp.float32).astype(cd)
     out = out.transpose(0, 3, 1, 2, 4).reshape(b, t, d)
     attn = matmul(out, p["wo"], cd)
     h = h + attn
@@ -386,9 +331,8 @@ def init_cache_layers(cfg: LlamaConfig, batch: int, dtype=jnp.bfloat16,
 
     Why it exists: with the stacked cache scanned through lax.scan's
     xs->ys, XLA cannot alias the input cache to the output stack — the
-    trace on the v5e showed the FULL cache copied once per forward call
-    (~2 ms per GB per step) plus per-layer dynamic-slice/update-slice
-    materialization, ~36% of the 7B decode step at 576-token prompts.
+    FULL cache is copied once per forward call plus per-layer
+    dynamic-slice/update-slice materialization.
     Separate per-layer buffers carried through the decode scan update
     in place (dynamic_update_slice on a carry aliases), and the unrolled
     loop indexes the stacked weights statically (offset views, no copy).
@@ -414,8 +358,6 @@ def forward(
     compute_dtype=jnp.bfloat16,
     kv_limit: int | None = None,    # static: attend to cache[:kv_limit] only
     last_logit_only: bool = False,  # lm_head on the final position only
-    decode_attn: str = "xla",       # "pallas": fused cache-read at T=1
-    prefill_attn: str = "xla",      # "pallas": fused causal chunk at T>1
     layers: str = "auto",           # "fori": in-place stacked-cache loop
 ) -> Tuple[jnp.ndarray, Tuple[jnp.ndarray, jnp.ndarray]]:
     """Returns (logits [B, T, V], updated cache). Embedding-level input so
@@ -426,7 +368,7 @@ def forward(
     per-layer (k, v) pairs (init_cache_layers) runs an UNROLLED Python
     loop with static weight indexing — bigger HLO, but the per-layer
     cache buffers update in place with no xs->ys copies (see
-    init_cache_layers for the measured cost of the scanned form).
+    init_cache_layers for the cost of the scanned form).
     `layers="fori"` (stacked cache only) runs the layer body under
     lax.fori_loop with the stacked cache in the CARRY, updated by
     dynamic_update_index_in_dim — in-place like the unrolled form but a
@@ -445,13 +387,11 @@ def forward(
                 params["blocks"])
             # the STACKED caches pass straight through: writes are
             # single-position in-place updates at (li, ..., pos) and
-            # reads go through fused layer slices / the scalar-prefetch
-            # Pallas kernel — no per-layer slice-out/write-back copies
-            # (measured: the copy form loses 12% at the 7B p576 shape)
+            # reads go through fused layer slices — no per-layer
+            # slice-out/write-back copies
             h, ck_all, cv_all = _attn_block(
                 h, layer_p, ck_all, cv_all, pos_offset, cfg,
-                compute_dtype, kv_limit=kv_limit, decode_attn=decode_attn,
-                prefill_attn=prefill_attn, layer_idx=li)
+                compute_dtype, kv_limit=kv_limit, layer_idx=li)
             return (h, ck_all, cv_all)
 
         h, cache_k, cache_v = jax.lax.fori_loop(
@@ -464,9 +404,7 @@ def forward(
         for i, (ck, cv) in enumerate(cache):
             layer_p = jax.tree.map(lambda a, i=i: a[i], params["blocks"])
             h, ck, cv = _attn_block(h, layer_p, ck, cv, pos_offset, cfg,
-                                    compute_dtype, kv_limit=kv_limit,
-                                    decode_attn=decode_attn,
-                                    prefill_attn=prefill_attn)
+                                    compute_dtype, kv_limit=kv_limit)
             new_cache.append((ck, cv))
     else:
         cache_k, cache_v = cache
@@ -474,9 +412,7 @@ def forward(
         def body(h, xs):
             layer_p, ck, cv = xs
             h, ck, cv = _attn_block(h, layer_p, ck, cv, pos_offset, cfg,
-                                    compute_dtype, kv_limit=kv_limit,
-                                    decode_attn=decode_attn,
-                                    prefill_attn=prefill_attn)
+                                    compute_dtype, kv_limit=kv_limit)
             return h, (ck, cv)
 
         h, new_cache = jax.lax.scan(
@@ -504,7 +440,6 @@ def prefill(
     kv_dtype=None,
     layers: str = "scan",
     prefill_chunk: int | None = None,
-    prefill_attn: str = "xla",
 ):
     """Build a right-sized cache and run the prompt through it. Returns
     (last-position logits [B, 1, V], cache). Shared by greedy_generate and
@@ -524,12 +459,11 @@ def prefill(
             # is noise; only the final chunk's logits are consumed
             logits, cache = forward(params, piece, cache, s0, cfg,
                                     compute_dtype, kv_limit=lim,
-                                    last_logit_only=True, layers=layers,
-                                    prefill_attn=prefill_attn)
+                                    last_logit_only=True, layers=layers)
     else:
         logits, cache = forward(params, prompt_embeds, cache, 0, cfg,
                                 compute_dtype, last_logit_only=True,
-                                layers=layers, prefill_attn=prefill_attn)
+                                layers=layers)
     return logits, cache
 
 
@@ -545,8 +479,6 @@ def greedy_generate(
     prefill_chunk: int | None = None,
     decode_window: int | None = None,
     early_stop: bool = False,
-    decode_attn: str = "xla",
-    prefill_attn: str = "xla",
 ) -> jnp.ndarray:
     """Greedy decode (temperature 0, the reference verifier's config).
     Returns [B, max_new_tokens] int32, EOS-padded after finish.
@@ -565,13 +497,6 @@ def greedy_generate(
     bounded at [B,KVH,G,C,(i+1)C] f32 (triangular total) instead of one
     [.., T, S] tensor, and the LM head runs on the final position only
     instead of all T prompt positions (a [B,T,vocab] f32 save).
-    `decode_attn="pallas"` routes the T=1 decode steps through the fused
-    Pallas cache-read attention kernel (ops/decode_attention.py): the
-    int8 cache streams HBM->VMEM raw with the bf16 convert in-VMEM —
-    prefill and any T>1 forward keep the XLA einsums.
-    `prefill_attn="pallas"` routes the T>1 prefill chunks through the
-    fused causal chunk-attention kernel (chunk_attention): the [C, S]
-    f32 scores/probs stay in VMEM and the stacked cache streams raw.
     `decode_window=W` splits the decode scan into segments of W steps;
     segment j reads cache[:round64(t+(j+1)·W)] (STATIC per segment), so
     decode steps early in a long generation (the reference verifier runs
@@ -589,8 +514,7 @@ def greedy_generate(
     # every step, so slack slots are pure KV-bandwidth waste
     cache_len = min(cfg.max_seq, ((t + max_new_tokens + 63) // 64) * 64)
     logits, cache = prefill(params, prompt_embeds, cfg, cache_len,
-                            compute_dtype, kv_dtype, layers, prefill_chunk,
-                            prefill_attn)
+                            compute_dtype, kv_dtype, layers, prefill_chunk)
     next_tok = jnp.argmax(logits[:, -1, :], axis=-1).astype(jnp.int32)
     finished = next_tok == eos_token
 
@@ -599,8 +523,7 @@ def greedy_generate(
             tok, cache, pos, finished = carry
             emb = embed_tokens(params, tok[:, None])
             logits, cache = forward(params, emb, cache, pos, cfg,
-                                    compute_dtype, kv_limit=kv_limit,
-                                    decode_attn=decode_attn, layers=layers)
+                                    compute_dtype, kv_limit=kv_limit, layers=layers)
             nxt = jnp.argmax(logits[:, -1, :], axis=-1).astype(jnp.int32)
             nxt = jnp.where(finished, eos_token, nxt)
             finished = finished | (nxt == eos_token)

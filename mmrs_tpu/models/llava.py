@@ -1,6 +1,6 @@
 """LLaVA-style VLM: CLIP ViT features -> MLP projector -> LLaMA decoder.
 
-The TPU-hosted implementation of the reference's verifier model
+The device-hosted implementation of the reference's verifier model
 (liuhaotian/llava-v1.5-7b, code/test_llava.py:6-13): the image is encoded by
 the CLIP ViT penultimate layer (patch tokens, CLS dropped — LLaVA's
 `vision_feature_layer=-2`, `vision_feature_select_strategy="default"`),
@@ -40,7 +40,6 @@ def vision_tokens(
     images: jnp.ndarray,             # [B, H, W, 3] normalized
     cfg: LLaVAConfig,
     compute_dtype=jnp.bfloat16,
-    attn_impl: str = "xla",          # "pallas" wins at T=577 (336px/14)
 ) -> jnp.ndarray:                    # [B, N(, +1), W]
     """Hidden states after layer (layers + vision_feature_layer + 1) —
     i.e. -2 selects the output of the second-to-last block, matching HF's
@@ -57,8 +56,7 @@ def vision_tokens(
     n_run = vcfg.layers + cfg.vision_feature_layer + 1
     sliced = jax.tree.map(lambda a: a[:n_run], visual_params["blocks"])
     act = quick_gelu if vcfg.quick_gelu else gelu
-    x = scan_blocks(x, sliced, vcfg.heads, None, act, compute_dtype,
-                    attn_impl=attn_impl)
+    x = scan_blocks(x, sliced, vcfg.heads, None, act, compute_dtype)
     if cfg.drop_cls:
         x = x[:, 1:, :]
     return x
@@ -71,10 +69,8 @@ def project(params: Params, feats: jnp.ndarray, compute_dtype=jnp.bfloat16):
 
 
 def encode_images(params: Params, images: jnp.ndarray, cfg: LLaVAConfig,
-                  compute_dtype=jnp.bfloat16,
-                  attn_impl: str = "xla") -> jnp.ndarray:
-    feats = vision_tokens(params["visual"], images, cfg, compute_dtype,
-                          attn_impl=attn_impl)
+                  compute_dtype=jnp.bfloat16) -> jnp.ndarray:
+    feats = vision_tokens(params["visual"], images, cfg, compute_dtype)
     return project(params, feats, compute_dtype)      # [B, N, lm_dim]
 
 
@@ -102,14 +98,11 @@ def generate(
     max_new_tokens: int = 32,
     eos_token: int = 2,
     compute_dtype=jnp.bfloat16,
-    attn_impl: str = "xla",
     kv_dtype=None,
     layers: str = "scan",
     prefill_chunk: int | None = None,
     decode_window: int | None = None,
     early_stop: bool = False,
-    decode_attn: str = "xla",
-    prefill_attn: str = "xla",
 ) -> jnp.ndarray:
     """Greedy VQA decode (temp 0), the cascade verifier's contract.
 
@@ -121,8 +114,7 @@ def generate(
     in-place cache decode / chunked causal prefill / segment-sliced
     decode cache reads — all matter most at exactly these prompt
     lengths)."""
-    img = encode_images(params, images, cfg, compute_dtype,
-                        attn_impl=attn_impl)
+    img = encode_images(params, images, cfg, compute_dtype)
     embeds = build_multimodal_embeds(params, pre_tokens, img, post_tokens,
                                      compute_dtype)
     return llama.greedy_generate(params["lm"], embeds, cfg.lm,
@@ -130,9 +122,7 @@ def generate(
                                  kv_dtype=kv_dtype, layers=layers,
                                  prefill_chunk=prefill_chunk,
                                  decode_window=decode_window,
-                                 early_stop=early_stop,
-                                 decode_attn=decode_attn,
-                                 prefill_attn=prefill_attn)
+                                 early_stop=early_stop)
 
 
 def generate_speculative(
@@ -147,12 +137,9 @@ def generate_speculative(
     draft_tokens: int = 4,
     eos_token: int = 2,
     compute_dtype=jnp.bfloat16,
-    attn_impl: str = "xla",
     kv_dtype=None,
     layers: str = "scan",
     prefill_chunk: int | None = None,
-    decode_attn: str = "xla",
-    prefill_attn: str = "xla",
     return_stats: bool = False,
 ) -> jnp.ndarray:
     """Greedy VQA decode accelerated by a smaller draft VLM.
@@ -167,12 +154,10 @@ def generate_speculative(
     """
     from mmrs_tpu.models.speculative import speculative_generate
 
-    img_t = encode_images(params, images, cfg, compute_dtype,
-                          attn_impl=attn_impl)
+    img_t = encode_images(params, images, cfg, compute_dtype)
     emb_t = build_multimodal_embeds(params, pre_tokens, img_t, post_tokens,
                                     compute_dtype)
-    img_d = encode_images(draft_params, images, draft_cfg, compute_dtype,
-                          attn_impl=attn_impl)
+    img_d = encode_images(draft_params, images, draft_cfg, compute_dtype)
     emb_d = build_multimodal_embeds(draft_params, pre_tokens, img_d,
                                     post_tokens, compute_dtype)
     return speculative_generate(
@@ -180,8 +165,7 @@ def generate_speculative(
         draft_cfg.lm, max_new_tokens=max_new_tokens,
         draft_tokens=draft_tokens, eos_token=eos_token,
         compute_dtype=compute_dtype, kv_dtype=kv_dtype, layers=layers,
-        prefill_chunk=prefill_chunk, decode_attn=decode_attn,
-        prefill_attn=prefill_attn, return_stats=return_stats)
+        prefill_chunk=prefill_chunk, return_stats=return_stats)
 
 
 def init(key: jax.Array, cfg: LLaVAConfig, dtype=jnp.float32) -> Params:

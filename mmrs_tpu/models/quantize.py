@@ -1,8 +1,8 @@
 """int8 serving quantization for the towers (opt-in, serving only).
 
-v5e's MXU executes int8 x int8 -> int32 at twice the bf16 rate, and the
-tower matmuls carry ~98% of the embed FLOPs, so quantizing the six block
-kernels (+patch embedding) roughly halves MXU time per image. Weights get
+Tensor cores execute int8 x int8 -> int32 at twice the bf16 rate, and
+the tower matmuls carry ~98% of the embed FLOPs, so quantizing the six
+block kernels (+patch embedding) can halve matmul time per image. Weights get
 per-output-channel symmetric scales at load time; activations are
 dynamically quantized per row inside `layers.dense` (see
 `layers._dense_int8`). Everything else — LayerNorm, softmax, residuals,
@@ -14,7 +14,7 @@ Accuracy contract: int8-vs-f32 embedding cosine and top-k rank parity are
 gated in tests/test_quantized_tower.py; the bf16-vs-f32 gate in
 eval/parity.py covers the gallery side. The reference has no quantized
 path (torch fp16 everywhere, e.g. code/search_image.py); this is
-TPU-native headroom, not a parity feature.
+serving headroom, not a parity feature.
 """
 
 from __future__ import annotations
@@ -85,7 +85,7 @@ def quantize_llama_int4(params: Params, group: int = 128,
                         keys=_LM_KEYS) -> Params:
     """LLaMA decoder with int4 grouped-quant serving weights (QTensor4,
     models/layers.py): HALF the int8 weight stream — the decode
-    bandwidth floor (NEXT.md #4: 6.9 GB/step at 7B int8). Group-wise
+    bandwidth floor. Group-wise
     scales along K (default 128, AWQ/GPTQ convention). Flows through the
     same `matmul` dispatch, so every decode form (fori/unroll/chunked
     prefill/speculative/TP) works unchanged. Quality at int4 requires a

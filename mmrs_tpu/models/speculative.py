@@ -1,8 +1,7 @@
 """Speculative greedy decoding: draft-model proposals, target verification.
 
-The 7B verifier's decode step is weight-bandwidth-bound (COVERAGE.md:
-~13.5 ms/step streams the 6.9 GB int8 weights + KV once per emitted
-token). Speculative decoding amortizes that stream: a small DRAFT model
+The 7B verifier's decode step is weight-bandwidth-bound (each step
+streams the int8 weights + KV once per emitted token). Speculative decoding amortizes that stream: a small DRAFT model
 proposes `k` tokens autoregressively (cheap — its weights are ~5% of the
 target's), then the target verifies all k in ONE forward over k+1
 positions — the same weight/KV traffic as a single decode step, but up to
@@ -12,11 +11,10 @@ argmax comparison, so the OUTPUT IS IDENTICAL to plain greedy decode of
 the target model for ANY draft model; the draft only affects speed
 (tested: tests/test_speculative.py).
 
-TPU-first mechanics:
+Mechanics:
   - the whole generate runs in one jit: a lax.while_loop over speculation
-    rounds, each round = k unrolled draft steps (MXU decode path,
-    optionally the fused Pallas cache-read kernel) + one target forward at
-    T=k+1 (which tiles the MXU far better than T=1). Draft step 0 runs at
+    rounds, each round = k unrolled draft steps + one target forward at
+    T=k+1 (which uses the tensor cores far better than T=1). Draft step 0 runs at
     T=2 starting one slot back, repairing the frontier KV slot a
     fully-accepted round leaves unwritten — at zero extra weight traffic
     (the draft is bandwidth-bound). Round 0 seeds that first position
@@ -59,8 +57,6 @@ def speculative_generate(
     kv_dtype=None,
     layers: str = "scan",
     prefill_chunk: int | None = None,
-    decode_attn: str = "xla",
-    prefill_attn: str = "xla",
     return_stats: bool = False,
 ) -> jnp.ndarray:
     """Greedy decode of the TARGET model, accelerated by a draft model.
@@ -98,10 +94,10 @@ def speculative_generate(
 
     tl, tcache = prefill(target_params, target_embeds, target_cfg,
                          min(target_cfg.max_seq, cache_len), cd, kv_dtype,
-                         layers, prefill_chunk, prefill_attn)
+                         layers, prefill_chunk)
     _, dcache = prefill(draft_params, draft_embeds, draft_cfg,
                         min(draft_cfg.max_seq, cache_len), cd, kv_dtype,
-                        layers, prefill_chunk, prefill_attn)
+                        layers, prefill_chunk)
     g0 = jnp.argmax(tl[:, -1, :], axis=-1).astype(jnp.int32)
 
     buf_len = max_new_tokens + k + 1
@@ -152,14 +148,13 @@ def speculative_generate(
         emb = jnp.concatenate(
             [prev_emb[:, None, :].astype(e_last.dtype), e_last], axis=1)
         lg, dcache = forward(draft_params, emb, dcache, pos - 1,
-                             draft_cfg, cd, decode_attn=decode_attn,
-                             prefill_attn=prefill_attn, layers=layers)
+                             draft_cfg, cd, layers=layers)
         cur = jnp.argmax(lg[:, -1, :], axis=-1).astype(jnp.int32)
         drafts = [cur]
         for j in range(1, k):               # static unroll
             emb = embed_tokens(draft_params, cur[:, None])
             lg, dcache = forward(draft_params, emb, dcache, pos + j,
-                                 draft_cfg, cd, decode_attn=decode_attn,
+                                 draft_cfg, cd,
                                  layers=layers)
             cur = jnp.argmax(lg[:, -1, :], axis=-1).astype(jnp.int32)
             drafts.append(cur)
@@ -167,13 +162,10 @@ def speculative_generate(
 
         # --- target: ONE forward over [last_tok, d_1..d_k] ---
         seq = jnp.concatenate([last_tok[:, None], d], axis=1)  # [B, k+1]
-        # T=k+1 verification forward: prefill_attn="pallas" routes it
-        # through the fused chunk kernel (per-row positions supported)
+        # T=k+1 verification forward (per-row positions supported)
         lg, tcache = forward(target_params,
                              embed_tokens(target_params, seq),
-                             tcache, pos, target_cfg, cd,
-                             decode_attn=decode_attn,
-                             prefill_attn=prefill_attn, layers=layers)
+                             tcache, pos, target_cfg, cd, layers=layers)
         g = jnp.argmax(lg, axis=-1).astype(jnp.int32)      # [B, k+1]
         # g[:, i] is the target's greedy choice after consuming
         # seq[:, :i+1] — g[:, 0] is what plain greedy would emit after

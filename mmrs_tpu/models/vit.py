@@ -1,14 +1,14 @@
-"""CLIP ViT image tower (B/32 and L/14) — TPU-first.
+"""CLIP ViT image tower (B/32 and L/14).
 
 Replaces the reference's `clip.load("ViT-B/32")` image encoder
 (code/test_clip.py:6, CLIP/lab1.py:50) and the HF
 openai/clip-vit-large-patch14 image tower (code/test_taiyi.py:17).
 
-TPU-first choices:
+Choices:
   - the patch-embedding conv (Conv2d stride=patch) is expressed as
     patchify-reshape + ONE dense matmul — a [B*G*G, P*P*3] x [P*P*3, W]
-    contraction that tiles directly onto the MXU instead of a small-window
-    convolution;
+    contraction that tiles directly onto the tensor cores instead of a
+    small-window convolution;
   - all per-layer params are stacked and the encoder body is one lax.scan
     (see models/layers.py);
   - matmuls in bf16 with f32 accumulation; LayerNorm/softmax in f32.
@@ -58,8 +58,6 @@ def apply(
     cfg: VITConfig,
     compute_dtype=jnp.bfloat16,
     unroll: int = 1,               # lax.scan unroll for the block stack
-    attn_impl: str = "xla",        # "pallas" = fused short-seq MHA kernel
-    mlp_impl: str = "xla",         # "pallas" = fused int8 MLP (QTensor only)
 ) -> jnp.ndarray:                   # [B, embed_dim]
     x = patchify(images, cfg.patch_size)                       # [B, N, P*P*3]
     x = dense(x, params["patch_kernel"], None, compute_dtype)  # [B, N, W]
@@ -72,7 +70,7 @@ def apply(
     x = layer_norm(x, params["ln_pre_scale"], params["ln_pre_bias"])
     act = quick_gelu if cfg.quick_gelu else gelu
     x = scan_blocks(x, params["blocks"], cfg.heads, None, act, compute_dtype,
-                    unroll=unroll, attn_impl=attn_impl, mlp_impl=mlp_impl)
+                    unroll=unroll)
 
     cls_tok = x[:, 0, :]
     cls_tok = layer_norm(cls_tok, params["ln_post_scale"], params["ln_post_bias"])

@@ -1,4 +1,4 @@
-"""Tiled all-pairs similarity with threshold — Pallas TPU kernel.
+"""Tiled all-pairs similarity with threshold: a Pallas kernel for the GPU.
 
 The semantic-dedup engine replacing the reference's O(N^2) Python hash loops:
   - intra-set dedup (tool/find_repeated_in_same_folder.py:56-106): for each
@@ -8,12 +8,16 @@ The semantic-dedup engine replacing the reference's O(N^2) Python hash loops:
   - cross-set leakage (tool/delete repeated.py:11-162): for each train row,
     find the first test row with cosine >= tau.
 
-TPU-first design: the N x N similarity matrix is NEVER materialized — a 2-D
-grid of (row-tile, col-tile) steps runs each [TILE, D] x [D, TILE] block on
-the MXU and reduces it immediately to a per-row running minimum matching
-column index in VMEM scratch. Output is a fixed-shape [N] int32 vector
-(first matching column, or -1) — no dynamic sparse emission, which XLA/TPU
-cannot do efficiently.
+The N x M similarity matrix is never materialized. In the kernel
+(Triton) each block owns one row tile and walks the column tiles in a
+loop, scoring each [TILE, D] x [D, TILE] block on the tensor cores (bf16
+operands, f32 accumulation) and folding it at once into a per-row
+running minimum matching column kept in registers. The output is a
+fixed-shape [N] int32 vector (first matching column, or -1).
+
+The XLA form walks column blocks with `lax.map` and the same
+min-reduction, so its working set is [N, block] and not [N, M]. The
+untiled `_first_match_xla` is the test oracle.
 """
 
 from __future__ import annotations
@@ -24,104 +28,93 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
+
+from mmrs_tpu.ops.dispatch import resolve_impl
+from mmrs_tpu.ops.topk import exact_dot_t
 
 BIG = 2**30
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _kernel(tau_ref, nrows_ref, ncols_ref, offs_ref, a_ref, b_ref, out_ref,
-            run_min, *, tile: int, intra: bool):
-    i = pl.program_id(0)   # row tile
-    j = pl.program_id(1)   # col tile (inner loop)
-    num_j = pl.num_programs(1)
-
-    @pl.when(j == 0)
-    def _init():
-        run_min[:] = jnp.full_like(run_min, BIG)
-
-    a = a_ref[:]           # [TILE, D]
-    b = b_ref[:]           # [TILE, D]
-    sims = jax.lax.dot_general(
-        a, b, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32
-    )                      # [TILE, TILE] rows=a cols=b
-
-    row_ids = i * tile + jax.lax.broadcasted_iota(jnp.int32, sims.shape, 0)
-    col_ids = j * tile + jax.lax.broadcasted_iota(jnp.int32, sims.shape, 1)
-
+def _kernel(tau_ref, offs_ref, a_ref, b_ref, out_ref, *, n: int, m: int,
+            d: int, tile: int, bk: int, intra: bool):
+    i = pl.program_id(0)
+    row_ids = i * tile + jnp.arange(tile, dtype=jnp.int32)
+    rmask = row_ids < n
     tau = tau_ref[0]
-    mask = sims >= tau
-    mask &= col_ids < ncols_ref[0]
-    mask &= row_ids < nrows_ref[0]
-    if intra:
-        # Global ordering constraint: only earlier GLOBAL rows count as
-        # keepers. Offsets place this shard's rows/cols in the full matrix
-        # (sharded ring dedup passes non-zero offsets).
-        mask &= (col_ids + offs_ref[1]) < (row_ids + offs_ref[0])
+    f32 = a_ref.dtype == jnp.float32
 
-    cand = jnp.where(mask, col_ids, BIG)
-    tile_min = jnp.min(cand, axis=1, keepdims=True)       # [TILE, 1]
-    run_min[:] = jnp.minimum(run_min[:], tile_min)
+    def col_tile(j, run_min):
+        col_ids = j * tile + jnp.arange(tile, dtype=jnp.int32)
+        cmask = col_ids < m
 
-    @pl.when(j == num_j - 1)
-    def _finish():
-        out_ref[:] = jnp.where(run_min[:] >= BIG, -1, run_min[:])
+        def chunk(c, acc):
+            kmask = c * bk + jnp.arange(bk) < d
+            a = plt.load(a_ref.at[pl.ds(i * tile, tile), pl.ds(c * bk, bk)],
+                         mask=rmask[:, None] & kmask[None, :], other=0)
+            b = plt.load(b_ref.at[pl.ds(j * tile, tile), pl.ds(c * bk, bk)],
+                         mask=cmask[:, None] & kmask[None, :], other=0)
+            return acc + pl.dot(a, b, trans_b=True,
+                                precision=HIGHEST if f32 else None)
+
+        sims = jax.lax.fori_loop(0, pl.cdiv(d, bk), chunk,
+                                 jnp.zeros((tile, tile), jnp.float32))
+        mask = (sims >= tau) & cmask[None, :]
+        if intra:
+            # Global ordering constraint: only earlier GLOBAL rows count as
+            # keepers. Offsets place this shard's rows/cols in the full
+            # matrix (sharded ring dedup passes non-zero offsets).
+            mask &= ((col_ids + offs_ref[1])[None, :]
+                     < (row_ids + offs_ref[0])[:, None])
+        cand = jnp.where(mask, col_ids[None, :], BIG)
+        return jnp.minimum(run_min, jnp.min(cand, axis=1))
+
+    run_min = jax.lax.fori_loop(0, pl.cdiv(m, tile), col_tile,
+                                jnp.full((tile,), BIG, jnp.int32))
+    out_ref[...] = jnp.where(run_min >= BIG, -1, run_min)
 
 
 def _first_match_pallas(
     a: jnp.ndarray,        # [N, D] rows to test
     b: jnp.ndarray,        # [M, D] candidate keepers
-    tau: float,
+    tau,
     intra: bool,
     row_offset=0,
     col_offset=0,
-    tile: int = 512,
+    tile: int = 128,
+    bk: int = 64,
     interpret: bool = False,
 ) -> jnp.ndarray:
     n, d = a.shape
     m = b.shape[0]
-    dp = _round_up(d, 128)
-    np_ = _round_up(n, tile)
-    mp = _round_up(m, tile)
-
-    a_p = jnp.zeros((np_, dp), a.dtype).at[:n, :d].set(a)
-    b_p = jnp.zeros((mp, dp), b.dtype).at[:m, :d].set(b)
+    b = b.astype(a.dtype)
+    tile = pl.next_power_of_2(tile)
+    bk = min(bk, max(16, pl.next_power_of_2(d)))
     offs = jnp.stack([jnp.asarray(row_offset, jnp.int32),
                       jnp.asarray(col_offset, jnp.int32)])
-
+    nt = pl.cdiv(n, tile)
     out = pl.pallas_call(
-        functools.partial(_kernel, tile=tile, intra=intra),
-        grid=(np_ // tile, mp // tile),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # tau
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # n rows
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # n cols
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # [row_offset, col_offset]
-            pl.BlockSpec((tile, dp), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, dp), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tile, 1), lambda i, j: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((np_, 1), jnp.int32),
-        scratch_shapes=[pltpu.VMEM((tile, 1), jnp.int32)],
+        functools.partial(_kernel, n=n, m=m, d=d, tile=tile, bk=bk,
+                          intra=intra),
+        grid=(nt,),
+        in_specs=[pl.no_block_spec] * 4,
+        out_specs=pl.BlockSpec((tile,), lambda i: (i,)),
+        out_shape=jax.ShapeDtypeStruct((nt * tile,), jnp.int32),
+        compiler_params=plt.CompilerParams(num_warps=8, num_stages=3),
         interpret=interpret,
-    )(
-        jnp.asarray([tau], jnp.float32),
-        jnp.asarray([n], jnp.int32),
-        jnp.asarray([m], jnp.int32),
-        offs,
-        a_p,
-        b_p,
-    )
-    return out[:n, 0]
+        name="first_match",
+    )(jnp.asarray(tau, jnp.float32).reshape(1), offs, a, b)
+    return out[:n]
 
 
 def _first_match_xla(a, b, tau, intra, row_offset=0, col_offset=0):
-    sims = jnp.dot(a.astype(jnp.float32), b.astype(jnp.float32).T,
-                   preferred_element_type=jnp.float32)
+    """Untiled oracle: builds the whole [N, M] f32 score matrix."""
+    sims = exact_dot_t(a, b)
     n, m = sims.shape
     mask = sims >= tau
     if intra:
@@ -134,6 +127,29 @@ def _first_match_xla(a, b, tau, intra, row_offset=0, col_offset=0):
     return jnp.where(first >= BIG, -1, first)
 
 
+def _first_match_blocked_xla(a, b, tau, intra, row_offset=0, col_offset=0,
+                             block: int = 8192):
+    """`_first_match_xla` over column blocks of b under `lax.map`, with the
+    same min-reduction: the working set is [N, block], so corpus-size
+    dedup fits on one card."""
+    m, d = b.shape
+    block = min(block, m)
+    nb = -(-m // block)
+    bp = jnp.zeros((nb * block, d), b.dtype).at[:m].set(b)
+
+    def one(jb):
+        start = jb * block
+        blk = jax.lax.dynamic_slice_in_dim(bp, start, block)
+        first = _first_match_xla(a, blk, tau, intra, row_offset,
+                                 jnp.asarray(col_offset, jnp.int32) + start)
+        ok = (first >= 0) & (first + start < m)
+        return jnp.where(ok, first + start, BIG)
+
+    first = jnp.min(jax.lax.map(one, jnp.arange(nb, dtype=jnp.int32)),
+                    axis=0)
+    return jnp.where(first >= BIG, -1, first)
+
+
 @functools.partial(jax.jit, static_argnames=("intra", "impl", "tile"))
 def first_match(
     a: jnp.ndarray,
@@ -143,7 +159,7 @@ def first_match(
     row_offset=0,
     col_offset=0,
     impl: str = "auto",
-    tile: int = 512,
+    tile: int = 128,
 ) -> jnp.ndarray:
     """For each row of `a`, LOCAL index of the first row of `b` with
     cosine >= tau (or -1). With `intra=True`, only columns whose GLOBAL id
@@ -151,19 +167,16 @@ def first_match(
     count — keep-first dedup semantics; pass offsets of 0 when a and b are
     the same un-sharded matrix.
 
-    Both inputs must be L2-normalized.
+    Both inputs must be L2-normalized. `impl` follows ops/dispatch.py;
+    "xla" is the column-blocked XLA form.
     """
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
+    impl = resolve_impl("first_match", impl)
     if impl == "xla":
-        return _first_match_xla(a, b, tau, intra, row_offset, col_offset)
-    if impl == "pallas":
-        return _first_match_pallas(a, b, tau, intra, row_offset, col_offset,
-                                   tile=tile)
-    if impl == "pallas_interpret":
-        return _first_match_pallas(a, b, tau, intra, row_offset, col_offset,
-                                   tile=tile, interpret=True)
-    raise ValueError(f"unknown impl {impl!r}")
+        return _first_match_blocked_xla(a, b, tau, intra, row_offset,
+                                        col_offset)
+    return _first_match_pallas(a, b, tau, intra, row_offset, col_offset,
+                               tile=tile,
+                               interpret=impl == "pallas_interpret")
 
 
 def dedup_groups(first: jnp.ndarray) -> Tuple[list, dict]:

@@ -40,7 +40,7 @@ def kmeans(
     (cents, _), _ = jax.lax.scan(seed_body, (init_c, d0), None, length=k - 1)
 
     def em_body(cents, _):
-        # [N, k] squared distances via matmul expansion (MXU-friendly)
+        # [N, k] squared distances via matmul expansion
         x2 = jnp.sum(x * x, axis=1, keepdims=True)
         c2 = jnp.sum(cents * cents, axis=1)[None, :]
         xc = x @ cents.T

@@ -3,7 +3,7 @@
 The reference normalizes every embedding before similarity
 (`image_features /= image_features.norm(dim=-1, keepdim=True)`,
 CLIP/lab1.py:89). We match that contract, with f32 math even for bf16
-inputs so that downstream cosine rankings are stable on the MXU.
+inputs so that downstream cosine rankings are stable.
 """
 
 from __future__ import annotations

@@ -5,18 +5,12 @@ bit-matched cheaply on device, and rank parity with the reference depends on
 it — so decode + resize + center-crop stay on host with PIL-identical math
 (CLIP/lab1.py:26 `preprocess(img)`), while the per-pixel affine
 (uint8 -> scale -> CLIP mean/std normalize -> bf16) runs on device; the
-batch travels host->HBM as uint8 (4x smaller).
+batch travels host->device as uint8 (4x smaller).
 
-WHY THE XLA PATH IS THE PRODUCTION DEFAULT (measured on v5e, 2026-08-16):
-XLA fuses this affine into the consumer (the patchify transpose + patch
-matmul), so the normalized image is never materialized in HBM — the
-standalone op pipelines at ~0 ms inside the tower. The Pallas kernel below
-is a separate pallas_call, which forces a [B,224,224,3] bf16 intermediate
-through HBM (write + re-read): ViT-B/32 embed measured 28.4 ms vs 24.8 ms
-per 256-image batch with it in the path. `impl="auto"` therefore resolves
-to "xla" everywhere; the kernel is kept as the reference implementation for
-standalone normalization and tests. (It also needs a uint8->int32->f32 cast
-hop — Mosaic on this TPU has no direct uint8->float cast.)
+The normalize is plain XLA: XLA fuses the affine into its consumer (the
+patchify transpose + patch matmul), so the normalized image is never
+materialized in device memory and a separate kernel could only add a
+round trip.
 
 CLIP normalization constants from code/custom.py:28.
 """
@@ -28,8 +22,6 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 # OpenAI CLIP constants (code/custom.py:28)
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -71,57 +63,16 @@ def hf_resize_center_crop(img, size: int = 224):
 
 
 # --------------------------------------------------------------------------
-# Device side: fused uint8 -> normalized bf16
+# Device side: uint8 -> normalized compute dtype
 # --------------------------------------------------------------------------
 
-def _norm_kernel(x_ref, mean_ref, inv_std_ref, out_ref):
-    # Mosaic has no direct uint8->float cast on this TPU generation; the
-    # int32 hop lowers cleanly (measured: u8->i32->f32 OK, u8->f32 FAILs).
-    x = x_ref[:].astype(jnp.int32).astype(jnp.float32) * (1.0 / 255.0)
-    out_ref[:] = ((x - mean_ref[:]) * inv_std_ref[:]).astype(out_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("dtype", "impl"))
+@functools.partial(jax.jit, static_argnames=("dtype",))
 def normalize_images(
     images_u8: jnp.ndarray,        # [B, H, W, 3] uint8
     dtype=jnp.bfloat16,
-    impl: str = "auto",
 ) -> jnp.ndarray:
     """(x/255 - mean) / std on device, output in compute dtype."""
-    if impl == "auto":
-        impl = "xla"  # measured faster: fuses into the patch matmul (above)
-
     mean = jnp.asarray(CLIP_MEAN, jnp.float32)
     inv_std = 1.0 / jnp.asarray(CLIP_STD, jnp.float32)
-
-    if impl == "xla":
-        x = images_u8.astype(jnp.float32) / 255.0
-        return ((x - mean) * inv_std).astype(dtype)
-
-    b, h, w, c = images_u8.shape
-    # Flatten to [B*H, W*C] rows; broadcast mean/std to a [1, W*C] row so the
-    # kernel is one VPU multiply-add per tile.
-    flat = images_u8.reshape(b * h, w * c)
-    mean_row = jnp.tile(mean, w)[None, :]
-    inv_row = jnp.tile(inv_std, w)[None, :]
-
-    interpret = impl == "pallas_interpret"
-    rows = b * h
-    tile_r = min(1024, rows)
-    pad = (-rows) % tile_r
-    if pad:
-        flat = jnp.pad(flat, ((0, pad), (0, 0)))
-    out = pl.pallas_call(
-        _norm_kernel,
-        grid=((rows + pad) // tile_r,),
-        in_specs=[
-            pl.BlockSpec((tile_r, w * c), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, w * c), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, w * c), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tile_r, w * c), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((rows + pad, w * c), dtype),
-        interpret=interpret,
-    )(flat, mean_row, inv_row)
-    return out[:rows].reshape(b, h, w, c)
+    x = images_u8.astype(jnp.float32) / 255.0
+    return ((x - mean) * inv_std).astype(dtype)

@@ -1,7 +1,8 @@
 """Int8 gallery quantization for the top-k scan.
 
-The 1M x 512 bf16 gallery read is the query path's entire cost (~1.1-1.6 ms
-at HBM roofline). Symmetric per-row int8 quantization halves the bytes:
+The 1M x 512 bf16 gallery read is the query path's entire cost (the scan is
+bound by device-memory bandwidth). Symmetric per-row int8 quantization halves
+the bytes:
 
     g_q[i] = round(127 * g[i] / max|g[i]|),  scale[i] = max|g[i]| / 127
     score(q, i) ≈ (q_q · g_q[i]) * q_scale * scale[i]
@@ -11,10 +12,9 @@ enough to perturb ranks only between near-ties; `cosine_topk_quantized`
 is OPT-IN while the bf16 kernel remains the rank-parity default
 (BASELINE.md's exact-parity target).
 
-Measured on v5e (1M x 512): the win is CAPACITY, not latency — the int8
-gallery halves HBM residency (0.5 GB vs 1 GB -> 2x rows per chip), but the
-int8 MXU path is not faster than bf16 at small query counts (2.3 ms pallas
-/ 0.95 ms xla vs 1.0-1.4 ms bf16 pallas).
+The sure win is capacity: the int8 gallery halves device residency (0.5 GB
+vs 1 GB for 1M x 512 -> 2x rows per card). Its time on an H100 is in
+PERF.md.
 """
 
 from __future__ import annotations
@@ -24,6 +24,9 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
+
+from mmrs_tpu.ops.dispatch import resolve_impl
+from mmrs_tpu.ops.topk import scan_topk_pallas
 
 
 @jax.jit
@@ -39,104 +42,11 @@ def quantize_rows(x: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
 def _topk_quant_xla(q_q, q_scale, gallery_q, scales, k):
     acc = jax.lax.dot_general(
         q_q, gallery_q, (((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.int32,
+        preferred_element_type=jnp.int32, precision=jax.lax.Precision.HIGHEST,
     )                                                    # [Q, N] int32
     scores = acc.astype(jnp.float32) * q_scale[:, None] * scales[None, :]
     vals, idxs = jax.lax.top_k(scores, k)
     return vals, idxs.astype(jnp.int32)
-
-
-def _kernel_q8(n_ref, qs_ref, q_ref, g_ref, s_ref, out_v_ref, out_i_ref,
-               run_v, run_i, *, k: int, tile_n: int):
-    """Fused int8 tile scan: int8 x int8 MXU matmul -> rescale -> running
-    top-k (same structure as ops/topk._kernel)."""
-    from mmrs_tpu.ops.topk import NEG_INF, _topk_merge
-
-    import jax.experimental.pallas as pl
-
-    step = pl.program_id(0)
-    num_steps = pl.num_programs(0)
-
-    @pl.when(step == 0)
-    def _init():
-        run_v[:] = jnp.full_like(run_v, NEG_INF)
-        run_i[:] = jnp.full_like(run_i, -1)
-
-    acc = jax.lax.dot_general(
-        q_ref[:], g_ref[:], (((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.int32,
-    )                                                    # [Q, TILE_N] int32
-    # scales arrive LANE-major [1, TILE_N]: a [TILE_N, 1] block pads every
-    # row to 128 lanes in VMEM (tile_n*512 B streamed for tile_n*4 of
-    # payload) and needs an in-kernel transpose — measured 6.1 ms for the
-    # 1M x 512 Q=64 scan vs 2.6 ms in this layout (scripts/
-    # bench_int4_gallery.py)
-    scores = acc.astype(jnp.float32) * qs_ref[:] * s_ref[:]    # [Q,1]*[1,T]
-
-    base = step * tile_n
-    qn, tn = scores.shape
-    col_ids = base + jax.lax.broadcasted_iota(jnp.int32, (qn, tn), 1)
-    scores = jnp.where(col_ids < n_ref[0], scores, NEG_INF)
-
-    merged_v = jnp.concatenate([run_v[:], scores], axis=1)
-    merged_i = jnp.concatenate([run_i[:], col_ids], axis=1)
-    new_v, new_i = _topk_merge(merged_v, merged_i, k)
-    run_v[:] = new_v
-    run_i[:] = new_i
-
-    @pl.when(step == num_steps - 1)
-    def _finish():
-        out_v_ref[:] = run_v[:]
-        out_i_ref[:] = run_i[:]
-
-
-def _topk_quant_pallas(q_q, q_scale, gallery_q, scales, k, tile_n=4096,
-                       interpret=False):
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    def _round_up(x, m):
-        return ((x + m - 1) // m) * m
-
-    q, d = q_q.shape
-    n = gallery_q.shape[0]
-    qp = _round_up(max(q, 8), 8)
-    dp = _round_up(d, 128)
-    tile_n = min(tile_n, _round_up(n, 128))
-    np_ = _round_up(n, tile_n)
-
-    q_p = jnp.zeros((qp, dp), jnp.int8).at[:q, :d].set(q_q)
-    qs_p = jnp.zeros((qp, 1), jnp.float32).at[:q, 0].set(q_scale)
-    g_p = jnp.zeros((np_, dp), jnp.int8).at[:n, :d].set(gallery_q)
-    s_p = jnp.zeros((1, np_), jnp.float32).at[0, :n].set(scales)
-
-    out_v, out_i = pl.pallas_call(
-        functools.partial(_kernel_q8, k=k, tile_n=tile_n),
-        grid=(np_ // tile_n,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((qp, 1), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((qp, dp), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_n, dp), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile_n), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((qp, k), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((qp, k), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((qp, k), jnp.float32),
-            jax.ShapeDtypeStruct((qp, k), jnp.int32),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((qp, k), jnp.float32),
-            pltpu.VMEM((qp, k), jnp.int32),
-        ],
-        interpret=interpret,
-    )(jnp.asarray([n], jnp.int32), qs_p, q_p, g_p, s_p)
-    return out_v[:q], out_i[:q]
 
 
 @functools.partial(jax.jit, static_argnames=("k", "impl", "tile_n"))
@@ -146,19 +56,16 @@ def cosine_topk_quantized(
     scales: jnp.ndarray,      # [N] f32
     k: int = 10,
     impl: str = "auto",
-    tile_n: int = 4096,
+    tile_n: int = 256,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Top-k over an int8 gallery: int8 x int8 MXU matmul with int32
+    """Top-k over an int8 gallery: int8 x int8 matmul with int32
     accumulation, rescaled to approximate cosines. `impl` as in
-    ops/topk.cosine_topk."""
+    ops/topk.cosine_topk; the kernel is ops/topk's scan with the scale
+    epilogue."""
     q_q, q_scale = quantize_rows(queries)
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
+    impl = resolve_impl("topk", impl)
     if impl == "xla":
         return _topk_quant_xla(q_q, q_scale, gallery_q, scales, k)
-    if impl == "pallas":
-        return _topk_quant_pallas(q_q, q_scale, gallery_q, scales, k, tile_n)
-    if impl == "pallas_interpret":
-        return _topk_quant_pallas(q_q, q_scale, gallery_q, scales, k, tile_n,
-                                  interpret=True)
-    raise ValueError(f"unknown impl {impl!r}")
+    return scan_topk_pallas(q_q, gallery_q, k, tile_n=tile_n,
+                            q_scale=q_scale, scales=scales,
+                            interpret=impl == "pallas_interpret")

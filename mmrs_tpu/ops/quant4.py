@@ -1,31 +1,28 @@
-"""Int4 packed gallery for the top-k scan — 4x rows per chip vs bf16.
+"""Int4 packed gallery for the top-k scan — 4x rows per card vs bf16.
 
 Extends the int8 capacity ladder (ops/quant.py) one more step: symmetric
 per-row int4 quantization (codes in [-7, 7]) with two embedding dims per
-byte, shipped as int32 WORDS so the nibble masks run at i32 width (one
-VPU op per 4 bytes — the int8-width masks measured 262 GB/s vs 375 at
-i32 in the decode-weight probes, scripts/probe_int4c.py).
+byte, shipped as int32 WORDS so the nibble masks run at i32 width.
 
-Layout (the part that makes it TPU-native): the packed gallery is stored
-TRANSPOSED, `[D/8, N]` int32, because Mosaic's `pltpu.bitcast(i32->i8)`
-expands the SUBLANE dim (word row r, byte k -> byte row 4r+k, verified
-little-endian on v5e) — so the contraction dim must live on sublanes.
-Dim d of the lo half packs into word row d//4 byte d%4; the hi nibble of
-that byte is dim D/2 + d. The scan kernel then needs no relayout:
+Layout: the packed gallery is stored TRANSPOSED, `[D/8, N]` int32. Dim d
+of the lo half packs into word row d//4 byte d%4; the hi nibble of that
+byte is dim D/2 + d. Unpacking is two masks and a byte bitcast:
 
     byte      = ((g_hi & 0xF) << 4) | ((g_lo + 8) & 0xF)
-    b & 0x0F  == g_lo + 8                 } two int8 MXU dots against the
+    b & 0x0F  == g_lo + 8                 } two int8 dots against the
     b & 0xF0  == 16 * g_hi                } int8-quantized query halves
     q . g     == (dot_lo - 8*rowsum(q_lo)) + dot_hi/16   (exact in int32)
 
-The offset-8 correction is a per-QUERY scalar (cheaper than the weight
-case: one rowsum per query, broadcast over all N). Per-row scales keep
-full quality semantics — no group machinery needed at D=512/768.
+The offset-8 correction is a per-QUERY scalar (one rowsum per query,
+broadcast over all N). Per-row scales keep full quality semantics — no
+group machinery needed at D=512/768.
 
-Like int8, the win is CAPACITY: 1M x 512 is 0.25 GB here vs 0.5 int8 /
-1.0 bf16. Opt-in via SearchEngine(quantize="int4"); bf16 remains the
-rank-parity default (BASELINE.md). Reference equivalent: none — the
-reference (code/search_image.py:105-117) holds a torch f32 gallery.
+The scan is plain XLA on every backend; a fused unpack kernel for the GPU
+is an open item (ROADMAP.md). Like int8, the win is CAPACITY: 1M x 512 is
+0.25 GB here vs 0.5 int8 / 1.0 bf16. Opt-in via
+SearchEngine(quantize="int4"); bf16 remains the rank-parity default
+(BASELINE.md). Reference equivalent: none — the reference
+(code/search_image.py:105-117) holds a torch f32 gallery.
 """
 
 from __future__ import annotations
@@ -70,9 +67,9 @@ def quantize_rows_int4(x: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
 
 def _unpack_planes_xla(packed: jnp.ndarray):
     """[D/8, N] words -> (lo_masked [D/2, N], hi_masked [D/2, N]) int8,
-    the exact operands the kernel feeds the MXU (lo_masked = g_lo + 8,
-    hi_masked = 16 * g_hi). XLA's bitcast_convert_type appends a trailing
-    little-endian byte dim, matching the on-chip sublane expansion."""
+    the two dot operands (lo_masked = g_lo + 8, hi_masked = 16 * g_hi).
+    XLA's bitcast_convert_type appends a trailing little-endian byte
+    dim."""
     def planes(words):
         b = jax.lax.bitcast_convert_type(words, jnp.int8)   # [D/8, N, 4]
         return b.transpose(0, 2, 1).reshape(-1, words.shape[1])
@@ -80,8 +77,8 @@ def _unpack_planes_xla(packed: jnp.ndarray):
 
 
 def _score_f32(dlo, dhi, rs_q, q_scale, scales_tile):
-    """Shared f32 epilogue — ONE expression used by both the kernel and
-    the XLA oracle so exactness tests compare bit-identical math."""
+    """Shared f32 epilogue — ONE expression used by the flat scan, the
+    IVF probe and the spill scan, so their scores agree bit for bit."""
     s = (dlo.astype(jnp.float32) - 8.0 * rs_q) + dhi.astype(jnp.float32) / 16.0
     return s * q_scale * scales_tile
 
@@ -99,109 +96,6 @@ def _topk_int4_xla(q_q, q_scale, rs_q, packed, scales, k):
     return vals, idxs.astype(jnp.int32)
 
 
-def _kernel_q4(n_ref, qs_ref, rs_ref, q_ref, g_ref, s_ref,
-               out_v_ref, out_i_ref, run_v, run_i, *, k: int, tile_n: int):
-    """Fused int4 tile scan: i32 nibble masks -> sublane bitcast -> two
-    int8 MXU dots -> offset/scale epilogue -> running top-k (structure of
-    ops/quant._kernel_q8)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    from mmrs_tpu.ops.topk import NEG_INF, _topk_merge
-
-    step = pl.program_id(0)
-    num_steps = pl.num_programs(0)
-
-    @pl.when(step == 0)
-    def _init():
-        run_v[:] = jnp.full_like(run_v, NEG_INF)
-        run_i[:] = jnp.full_like(run_i, -1)
-
-    w32 = g_ref[:]                                   # [D/8, TILE_N]
-    lo = pltpu.bitcast(w32 & MASK_LO, jnp.int8)      # [D/2, TILE_N]
-    hi = pltpu.bitcast(w32 & MASK_HI, jnp.int8)
-    h = lo.shape[0]
-    dlo = jax.lax.dot_general(
-        q_ref[:, :h], lo, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32)            # [Q, TILE_N]
-    dhi = jax.lax.dot_general(
-        q_ref[:, h:], hi, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32)
-    scores = _score_f32(dlo, dhi, rs_ref[:], qs_ref[:], s_ref[:])
-
-    base = step * tile_n
-    qn, tn = scores.shape
-    col_ids = base + jax.lax.broadcasted_iota(jnp.int32, (qn, tn), 1)
-    scores = jnp.where(col_ids < n_ref[0], scores, NEG_INF)
-
-    merged_v = jnp.concatenate([run_v[:], scores], axis=1)
-    merged_i = jnp.concatenate([run_i[:], col_ids], axis=1)
-    new_v, new_i = _topk_merge(merged_v, merged_i, k)
-    run_v[:] = new_v
-    run_i[:] = new_i
-
-    @pl.when(step == num_steps - 1)
-    def _finish():
-        out_v_ref[:] = run_v[:]
-        out_i_ref[:] = run_i[:]
-
-
-def _topk_int4_pallas(q_q, q_scale, rs_q, packed, scales, k, tile_n=4096,
-                      interpret=False):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    def _round_up(x, m):
-        return ((x + m - 1) // m) * m
-
-    q, d = q_q.shape
-    dw, n = packed.shape                              # dw = D/8 word rows
-    qp = _round_up(max(q, 8), 8)
-    tile_n = min(tile_n, _round_up(n, 128))
-    np_ = _round_up(n, tile_n)
-
-    q_p = jnp.zeros((qp, d), jnp.int8).at[:q].set(q_q)
-    qs_p = jnp.zeros((qp, 1), jnp.float32).at[:q, 0].set(q_scale)
-    rs_p = jnp.zeros((qp, 1), jnp.float32).at[:q, 0].set(rs_q)
-    g_p = packed
-    s_p = scales[None, :]
-    if np_ != n:
-        g_p = jnp.zeros((dw, np_), jnp.int32).at[:, :n].set(packed)
-        s_p = jnp.zeros((1, np_), jnp.float32).at[0, :n].set(scales)
-
-    out_v, out_i = pl.pallas_call(
-        functools.partial(_kernel_q4, k=k, tile_n=tile_n),
-        grid=(np_ // tile_n,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),                  # n valid
-            pl.BlockSpec((qp, 1), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),                  # q scales
-            pl.BlockSpec((qp, 1), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),                  # q rowsums
-            pl.BlockSpec((qp, d), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),                  # queries
-            pl.BlockSpec((dw, tile_n), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),                  # packed
-            pl.BlockSpec((1, tile_n), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),                  # scales
-        ],
-        out_specs=(
-            pl.BlockSpec((qp, k), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((qp, k), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((qp, k), jnp.float32),
-            jax.ShapeDtypeStruct((qp, k), jnp.int32),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((qp, k), jnp.float32),
-            pltpu.VMEM((qp, k), jnp.int32),
-        ],
-        interpret=interpret,
-    )(jnp.asarray([n], jnp.int32), qs_p, rs_p, q_p, g_p, s_p)
-    return out_v[:q], out_i[:q]
-
-
 def _prep_queries(queries: jnp.ndarray):
     """Per-row int8 query quantization + the lo-half rowsum the offset
     correction needs. Queries must already be L2-normalized."""
@@ -211,29 +105,17 @@ def _prep_queries(queries: jnp.ndarray):
     return q_q, q_scale, rs_q
 
 
-@functools.partial(jax.jit, static_argnames=("k", "impl", "tile_n"))
+@functools.partial(jax.jit, static_argnames=("k",))
 def cosine_topk_int4(
     queries: jnp.ndarray,     # [Q, D] float (L2-normalized)
     packed: jnp.ndarray,      # [D//8, N] int32 (quantize_rows_int4)
     scales: jnp.ndarray,      # [N] f32
     k: int = 10,
-    impl: str = "auto",
-    tile_n: int = 4096,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Top-k over an int4 packed gallery. `impl` as in ops/topk.cosine_topk;
-    the "xla" path runs bit-identical math (oracle for the kernel tests)."""
+    """Top-k over an int4 packed gallery (the XLA form on every
+    backend)."""
     q_q, q_scale, rs_q = _prep_queries(queries)
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if impl == "xla":
-        return _topk_int4_xla(q_q, q_scale, rs_q, packed, scales, k)
-    if impl == "pallas":
-        return _topk_int4_pallas(q_q, q_scale, rs_q, packed, scales, k,
-                                 tile_n)
-    if impl == "pallas_interpret":
-        return _topk_int4_pallas(q_q, q_scale, rs_q, packed, scales, k,
-                                 tile_n, interpret=True)
-    raise ValueError(f"unknown impl {impl!r}")
+    return _topk_int4_xla(q_q, q_scale, rs_q, packed, scales, k)
 
 
 @jax.jit

@@ -3,10 +3,10 @@
 The O(N^2) dedup similarity matrix is covered without ever holding more
 than one [N/S, D] column block per chip: each device owns a row block of
 the (row-sharded) embedding matrix and circulates its block around the ring
-with `jax.lax.ppermute` (S steps over ICI). At each step every chip runs the
+with `jax.lax.ppermute` (S steps). At each step every device runs the
 fused `first_match` kernel of its row block against the visiting column
 block and folds the result into a running per-row minimum global column
-index. This is the TPU-native replacement for the reference's O(N^2)
+index. This is the scale-out replacement for the reference's O(N^2)
 Python hash-comparison loops (tool/find_repeated_in_same_folder.py:83-87,
 tool/delete repeated.py:127-135) at gallery scale.
 """
@@ -72,7 +72,7 @@ def sharded_first_match(
                                    fm + col_base, BIG)
             run = jnp.minimum(run, global_col)
 
-            # Pass the block to the left neighbor (ring over ICI).
+            # Pass the block to the left neighbor (ring).
             block = jax.lax.ppermute(
                 block, axis, [(i, (i - 1) % s) for i in range(s)]
             )

@@ -1,15 +1,14 @@
 """IVF ANN index x mesh — slot-shard every bucket over the data axis.
 
 VERDICT r3 #1: the sub-linear index (index/ivf.py) must compose with
---gallery-shards, because the north star (BASELINE.md: <5 ms p50 on a
-v5e-8) is defined multi-chip and a 100M-row gallery needs IVF *and* 8
-chips at once. The TPU-native layout choice:
+--gallery-shards, because a 100M-row gallery needs IVF *and* several
+cards at once. The layout choice:
 
   - **Slot-sharding, not cluster-sharding.** Every shard holds ALL C
     clusters but only `cap / n_shards` slots of each bucket (and a
     1/n_shards strip of the spill). The centroid matmul and the global
     top-nprobe probe list are computed replicated — identical on every
-    chip, no communication — and each chip DMAs only ITS slot strip of
+    card, no communication — and each card reads only ITS slot strip of
     the probed buckets. Per-chip traffic drops S-fold (nprobe * cap/S
     * Dp) while capacity grows S-fold: latency AND capacity scale.
     Cluster-sharding instead leaves the probe set unbalanced (a query's
@@ -23,7 +22,7 @@ chips at once. The TPU-native layout choice:
   - **The merge is the flat path's merge.** Bucket ids are stored as
     GLOBAL gallery rows, so no shard-offset arithmetic: mask id < 0,
     all-gather [S, Q, k], top-k. Same collective budget as
-    parallel/topk.py (k * S tiny rows over ICI).
+    parallel/topk.py (k * S tiny rows).
 
 Reference equivalent: none — the reference scans one torch f32 gallery
 per query (code/search_image.py:105-117); this is the scale-out of the
@@ -40,7 +39,8 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
-from mmrs_tpu.index.ivf import IVFIndex, _ivf_topk_body, auto_nprobe
+from mmrs_tpu.index.ivf import (IVFIndex, _ivf_topk_body, auto_nprobe,
+                                probe_impl)
 from mmrs_tpu.ops.topk import NEG_INF
 from mmrs_tpu.parallel.mesh import DATA_AXIS
 
@@ -142,7 +142,7 @@ def sharded_ivf_topk(
     nprobe: int = 0,          # 0 = auto; == n_clusters is exact
     mesh: Optional[Mesh] = None,
     axis: str = DATA_AXIS,
-    impl: str = "auto",       # per-shard kernel choice (pallas on TPU)
+    impl: str = "auto",       # per-shard kernel choice (ops/dispatch.py)
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """ivf_topk's contract over the slot-sharded index: each shard runs
     the probe body on its slot strip, candidates all-gather-merge.
@@ -154,8 +154,7 @@ def sharded_ivf_topk(
         nprobe = auto_nprobe(ivf.n_clusters)
     nprobe = min(nprobe, ivf.n_clusters)
     k = min(k, ivf.n_total)
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
+    impl = probe_impl(ivf.quant, impl)
 
     quant = ivf.quant
     quantized = ivf.quantized

@@ -1,11 +1,12 @@
 """Device-mesh construction and sharding helpers.
 
 The reference has no distributed execution (SURVEY.md §2.6 — single CUDA GPU,
-no NCCL/MPI/DDP anywhere). The TPU framework's scaling axis is the GALLERY:
+no NCCL/MPI/DDP anywhere). This framework's scaling axis is the GALLERY:
 embedding rows are sharded over the `data` mesh axis and queries are
 replicated; a `model` axis is reserved for tensor-parallel hosting of a
-large VLM verifier. Collectives ride ICI via compiler-inserted all-gathers /
-ppermutes — no custom transport.
+large VLM verifier. Collectives are compiler-inserted all-gathers /
+ppermutes (NCCL over NVLink on a GPU host) — no custom transport. The
+cards of one host are joined all to all, so a flat axis is the layout.
 """
 
 from __future__ import annotations

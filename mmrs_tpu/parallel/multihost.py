@@ -1,19 +1,19 @@
-"""Multi-host (multi-process) mesh construction — the >8-chip story.
+"""Multi-host (multi-process) mesh construction.
 
-The reference never leaves one GPU; the TPU framework's scale-out axis is
-the gallery (SURVEY.md §2.6), and past a single host that means a hybrid
-DCN x ICI mesh:
+The reference never leaves one GPU; this framework's scale-out axis is
+the gallery (SURVEY.md §2.6), and past a single host that means a
+two-level mesh:
 
   - the `data` axis (gallery row shards, DP embedding) spans HOSTS first,
-    then the surplus local devices — the only collective that crosses DCN
-    is the top-k candidate all-gather ([Q, k*S] floats, a few KB) and the
-    psum of batch stats, both tiny;
+    then the surplus local devices — the only collective that crosses
+    hosts is the top-k candidate all-gather ([Q, k*S] floats, a few KB)
+    and the psum of batch stats, both tiny;
   - the `model` axis (TP verifier shards) stays INSIDE a host so Megatron
-    all-reduces ride ICI only.
+    all-reduces stay on the host's own links (NVLink).
 
-`distributed_init` wraps jax.distributed.initialize: on TPU pods all
-arguments auto-detect from the metadata server; elsewhere pass
-coordinator/process counts explicitly (or set JAX_COORDINATOR_ADDRESS etc.).
+`distributed_init` wraps jax.distributed.initialize: pass the coordinator
+address (`host:port`), process count and process id explicitly (or set
+JAX_COORDINATOR_ADDRESS etc.); nothing detects a cluster by itself.
 
 Single-process fallback: with one process this degrades exactly to
 parallel.mesh.make_mesh, so every sharded code path (parallel/topk.py,
@@ -41,8 +41,7 @@ def distributed_init(
 ) -> bool:
     """Initialize the JAX distributed runtime (idempotent, safe to skip).
 
-    Returns True if multi-process mode is active after the call. On Cloud
-    TPU pods, call with no arguments — everything is auto-detected. A
+    Returns True if multi-process mode is active after the call. A
     single-process run (tests, one host) returns False without side
     effects.
     """
@@ -71,10 +70,10 @@ def distributed_init(
 
 
 def make_hybrid_mesh(cfg: Optional[MeshConfig] = None) -> Mesh:
-    """(data, model) mesh laid out DCN-first on the data axis.
+    """(data, model) mesh laid out host-major on the data axis.
 
     Axis sizes: model = cfg.model_size (must divide the LOCAL device
-    count — TP collectives must not cross DCN); data = processes x
+    count — TP collectives must not cross hosts); data = processes x
     (local_devices / model). With one process this is exactly
     mesh.make_mesh's layout.
     """
@@ -85,7 +84,7 @@ def make_hybrid_mesh(cfg: Optional[MeshConfig] = None) -> Mesh:
     if local % model:
         raise ValueError(
             f"model axis ({model}) must divide local device count ({local}) "
-            "— tensor-parallel collectives must stay inside one host's ICI")
+            "— tensor-parallel collectives must stay inside one host")
     per_host_data = local // model
     if cfg.data_size > 0 and cfg.data_size != procs * per_host_data:
         raise ValueError(
@@ -99,7 +98,7 @@ def make_hybrid_mesh(cfg: Optional[MeshConfig] = None) -> Mesh:
 
         # granule = PROCESS: the data axis spans hosts (each host's devices
         # stay contiguous on it), whatever the slice topology — matches the
-        # docstring's DCN-first layout and works on CPU test meshes too.
+        # docstring's host-major layout and works on CPU test meshes too.
         devices = mesh_utils.create_hybrid_device_mesh(
             mesh_shape=(per_host_data, model),
             dcn_mesh_shape=(procs, 1),
@@ -160,7 +159,7 @@ def process_local_rows(n: int, mesh: Mesh, axis: str = DATA_AXIS):
 
 def _owned_span(mesh: Mesh, axis: str):
     """(first, last) data-axis shard positions any of THIS process's
-    devices sit on (DCN-major layout); (0, -1) if none."""
+    devices sit on (host-major layout); (0, -1) if none."""
     local_ids = {d.id for d in jax.local_devices()}
     rows = []
     axis_idx = list(mesh.axis_names).index(axis)

@@ -3,14 +3,13 @@
 Completes the composition VERDICT r3 #6 asked for: the [D/8, N] packed
 word plane (ops/quant4.py) is COLUMN-sharded over the data axis (columns
 are gallery rows in the transposed layout), per-row scales row-sharded,
-and each chip runs the fused dual-masked-int8-MXU-dot scan kernel on its
-own shard — the kernel is shard-local by construction, so the only new
-code is placement + the same candidate all-gather merge the bf16/int8
-sharded paths use (parallel/topk.py). 4x rows per chip TIMES n_chips:
-a v5e-8 holds 32x the bf16 single-chip gallery.
+and each card runs the int4 scan (dual masked int8 dots) on its own
+shard — the scan is shard-local by construction, so the only new code
+is placement + the same candidate all-gather merge the bf16/int8
+sharded paths use (parallel/topk.py). 4x rows per card TIMES n_cards.
 
 Reference equivalent: none (the reference holds one torch f32 gallery,
-code/search_image.py:105-117); this is the TPU-native scale-out of its
+code/search_image.py:105-117); this is the scale-out of its
 scan.
 """
 
@@ -58,10 +57,9 @@ def sharded_cosine_topk_int4(
     k: int,
     mesh: Mesh,
     axis: str = DATA_AXIS,
-    impl: str = "auto",
     n_valid: int | None = None,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Per-shard fused int4 scan + global candidate merge — the
+    """Per-shard int4 scan + global candidate merge — the
     sharded_cosine_topk contract over the packed plane."""
     n = packed.shape[1]
     n_shards = mesh.shape[axis]
@@ -75,7 +73,7 @@ def sharded_cosine_topk_int4(
 
     def local(q, w_shard, s_shard):
         vals, idxs = cosine_topk_int4(
-            q, w_shard, s_shard, k=min(k, rows_per_shard), impl=impl)
+            q, w_shard, s_shard, k=min(k, rows_per_shard))
         if vals.shape[1] < k:
             padk = k - vals.shape[1]
             vals = jnp.pad(vals, ((0, 0), (0, padk)),

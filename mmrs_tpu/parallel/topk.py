@@ -1,9 +1,9 @@
 """Distributed top-k over a row-sharded gallery.
 
 SURVEY.md §5's design, implemented: queries are replicated, each chip runs
-the fused Pallas `cosine_topk` over ITS gallery shard (local indices +
+the fused `cosine_topk` over ITS gallery shard (local indices +
 shard offset -> global row ids), the per-shard [Q, k] candidates are
-all-gathered over ICI (k * n_shards values — tiny), and the final top-k
+all-gathered (k * n_shards values — tiny), and the final top-k
 merge happens on every chip redundantly (cheaper than a host round-trip).
 One jitted shard_map; no host involvement.
 

@@ -1,7 +1,7 @@
 """Tensor-parallel hosting of the VLM verifier decoder.
 
 SURVEY.md §2.6 item 3: ViT towers fit on one chip, but the mesh keeps a
-`model` axis reserved so the 7B LLaVA decoder can be TP-sharded over ICI.
+`model` axis reserved so the 7B LLaVA decoder can be TP-sharded.
 Megatron-style layout, applied as jit in_shardings (GSPMD inserts the
 all-reduces after the row-parallel matmuls):
 
@@ -173,13 +173,11 @@ def llava_checkpoint_placement(mesh: Mesh):
 
 def make_tp_llava_generate(cfg, mesh: Mesh, max_new_tokens: int = 32,
                            eos_token: int = 2, compute_dtype=jnp.bfloat16,
-                           attn_impl: str = "xla", kv_dtype=None,
+                           kv_dtype=None,
                            layers: str = "scan",
                            prefill_chunk: int | None = None,
                            decode_window: int | None = None,
-                           early_stop: bool = False,
-                           decode_attn: str = "xla",
-                           prefill_attn: str = "xla"):
+                           early_stop: bool = False):
     """jitted llava.generate with the decoder TP-sharded over `mesh`.
 
     The vision tower + projector run replicated (every chip computes
@@ -195,10 +193,9 @@ def make_tp_llava_generate(cfg, mesh: Mesh, max_new_tokens: int = 32,
     def gen(params, images, pre_tokens, post_tokens):
         return llava.generate(
             params, images, pre_tokens, post_tokens, cfg, max_new_tokens,
-            eos_token, compute_dtype, attn_impl=attn_impl,
+            eos_token, compute_dtype,
             kv_dtype=kv_dtype, layers=layers, prefill_chunk=prefill_chunk,
-            decode_window=decode_window, early_stop=early_stop,
-            decode_attn=decode_attn, prefill_attn=prefill_attn)
+            decode_window=decode_window, early_stop=early_stop)
 
     return jax.jit(gen, in_shardings=(None, inp, inp, inp),
                    out_shardings=repl)
@@ -207,9 +204,8 @@ def make_tp_llava_generate(cfg, mesh: Mesh, max_new_tokens: int = 32,
 def make_tp_llava_speculative_generate(
         cfg, draft_cfg, mesh: Mesh, max_new_tokens: int = 32,
         draft_tokens: int = 4, eos_token: int = 2,
-        compute_dtype=jnp.bfloat16, attn_impl: str = "xla", kv_dtype=None,
+        compute_dtype=jnp.bfloat16, kv_dtype=None,
         layers: str = "scan", prefill_chunk: int | None = None,
-        decode_attn: str = "xla", prefill_attn: str = "xla",
         return_stats: bool = False):
     """jitted llava.generate_speculative: target decoder TP-sharded,
     draft VLM replicated or its decoder TP-sharded — whichever way the
@@ -226,9 +222,8 @@ def make_tp_llava_speculative_generate(
         return llava.generate_speculative(
             params, dparams, images, pre_tokens, post_tokens, cfg,
             draft_cfg, max_new_tokens, draft_tokens, eos_token,
-            compute_dtype, attn_impl=attn_impl, kv_dtype=kv_dtype,
+            compute_dtype, kv_dtype=kv_dtype,
             layers=layers, prefill_chunk=prefill_chunk,
-            decode_attn=decode_attn, prefill_attn=prefill_attn,
             return_stats=return_stats)
 
     # target/draft param shardings are inherited from their committed
@@ -250,8 +245,7 @@ def make_tp_speculative_generate(
         target_cfg: LlamaConfig, draft_cfg: LlamaConfig, mesh: Mesh,
         max_new_tokens: int, draft_tokens: int = 4, eos_token: int = 2,
         compute_dtype=jnp.bfloat16, kv_dtype=None, layers: str = "scan",
-        prefill_chunk: int | None = None, decode_attn: str = "xla",
-        prefill_attn: str = "xla", return_stats: bool = False):
+        prefill_chunk: int | None = None, return_stats: bool = False):
     """Speculative greedy decode with the TARGET TP-sharded over `mesh`.
 
     Output is token-exact vs `make_tp_generate` of the target (the
@@ -265,7 +259,7 @@ def make_tp_speculative_generate(
       - `replicate_llama_params`: each chip redundantly computes the full
         draft (its weights are ~5% of the target's) with zero
         collectives.
-    Which wins is an ICI-latency vs HBM-bandwidth trade — measure on the
+    Which wins is a collective-latency vs memory-bandwidth trade — measure on the
     deployment mesh.
     """
     from mmrs_tpu.models.speculative import speculative_generate
@@ -279,8 +273,7 @@ def make_tp_speculative_generate(
             target_cfg, draft_cfg, max_new_tokens=max_new_tokens,
             draft_tokens=draft_tokens, eos_token=eos_token,
             compute_dtype=compute_dtype, kv_dtype=kv_dtype, layers=layers,
-            prefill_chunk=prefill_chunk, decode_attn=decode_attn,
-            prefill_attn=prefill_attn, return_stats=return_stats)
+            prefill_chunk=prefill_chunk, return_stats=return_stats)
 
     # param shardings inherit from their committed placement
     # (shard_llama_params / replicate_llama_params)

@@ -45,13 +45,6 @@ class Towers:
     image_encode_raw: Optional[Callable] = None
 
 
-def _host_cpu():
-    try:
-        return jax.devices("cpu")[0]
-    except RuntimeError:
-        return jax.devices()[0]
-
-
 def build_towers(cfg: Config, tokenizer=None) -> Towers:
     """Construct the configured tower pair. Weights come from
     cfg.model.checkpoint_path (an npz saved from models/convert.py output);
@@ -83,33 +76,26 @@ def build_towers(cfg: Config, tokenizer=None) -> Towers:
 
     if cfg.model.checkpoint_path:
         params = checkpoint.load_npz(cfg.model.checkpoint_path)
+    elif isinstance(ccfg, TaiyiCLIPConfig):
+        params = clip.taiyi_init(jax.random.key(cfg.seed), ccfg)
     else:
-        with jax.default_device(_host_cpu()):
-            if isinstance(ccfg, TaiyiCLIPConfig):
-                params = clip.taiyi_init(jax.random.key(cfg.seed), ccfg)
-            else:
-                params = clip.init(jax.random.key(cfg.seed), ccfg)
+        params = clip.init(jax.random.key(cfg.seed), ccfg)
+    # weights live on the device once; host arrays passed to the jitted
+    # encoders would be copied over on every call
+    params = jax.device_put(params)
 
     # dtype "int8": bf16 compute mix with the vision-tower matmuls running
-    # int8 x int8 on the MXU (2x the bf16 rate on v5e) — see models/quantize.py
+    # int8 x int8 with int32 accumulation — see models/quantize.py
     compute_dtype = jnp.float32 if cfg.model.dtype == "float32" else jnp.bfloat16
     if cfg.model.dtype == "int8":
         from mmrs_tpu.models.quantize import quantize_clip_visual
 
         params = quantize_clip_visual(params)
 
-    # Fused Pallas MHA wins for LONG vision sequences (measured on v5e:
-    # L/14 T=257 +19% bf16 / +27% int8; B/32 T=50 it LOSES to XLA's batched
-    # einsum — see COVERAGE.md perf notes), so select per tower.
-    attn_impl = ("pallas"
-                 if jax.default_backend() == "tpu" and vision.seq_len >= 128
-                 else "xla")
-
     @functools.partial(jax.jit, static_argnums=())
     def _embed_images(p, images_u8):
-        x = normalize_images(images_u8, dtype=compute_dtype, impl="xla")
-        return clip.encode_image(p, x, ccfg, compute_dtype=compute_dtype,
-                                 attn_impl=attn_impl)
+        x = normalize_images(images_u8, dtype=compute_dtype)
+        return clip.encode_image(p, x, ccfg, compute_dtype=compute_dtype)
 
     def image_encode(pixels_u8: np.ndarray) -> np.ndarray:
         out = _embed_images(params, jnp.asarray(pixels_u8))
@@ -117,9 +103,9 @@ def build_towers(cfg: Config, tokenizer=None) -> Towers:
 
     @functools.partial(jax.jit, static_argnums=())
     def _embed_images_raw(p, images_u8):
-        x = normalize_images(images_u8, dtype=compute_dtype, impl="xla")
+        x = normalize_images(images_u8, dtype=compute_dtype)
         return clip.encode_image(p, x, ccfg, compute_dtype=compute_dtype,
-                                 normalize=False, attn_impl=attn_impl)
+                                 normalize=False)
 
     def image_encode_raw(pixels_u8: np.ndarray) -> np.ndarray:
         out = _embed_images_raw(params, jnp.asarray(pixels_u8))

@@ -1,34 +1,18 @@
-"""Capacity planner: quant x flat/IVF x shards from rows/dim/chips/HBM.
+"""Capacity planner: quant x flat/IVF x shards from rows/dim/cards/memory.
 
 The reference has no planner (its gallery is a pickle that either fits in
-GPU RAM or crashes, code/search_image.py:142-165); at TPU serving scale a
-user discovers OOM at engine init. `mmrs plan` predicts residency and Q=1
-latency for every rung of the residency ladder BEFORE building, and the
-engine's init-OOM error points here.
+GPU RAM or crashes, code/search_image.py:142-165); at serving scale a user
+discovers OOM at engine init. `mmrs plan` predicts the device residency
+of every rung of the residency ladder BEFORE building, and the engine's
+init-OOM error points here.
 
-The formulas are pinned to on-chip measurements (COVERAGE.md, v5e 16 GB):
-
-  residency
-    flat bf16 10M x 512          10.24 GB   (exact: rows*dim*2)
-    IVF  bf16 C=4096 slots 1.25  14.2  GB   (model: 13.9, -2%)
-    IVF  int8 slots 1.25          7.2  GB   (model:  7.0, -3%)
-    IVF  int8 slots 1.6           8.48 GB   (model:  8.5, +0.5%)
-    IVF  bf16 slots 1.6          16.4  GB -> OOM on 16 GB (model agrees)
-
-  Q=1 top-10 latency (single chip)
-    flat bf16 10M    14.41 ms  (model: bytes / 710 GB/s effective — the
-                                measured 87% of the 819 GB/s roofline)
-    flat bf16 1M      1.31-1.47 ms (model 1.44)
-    IVF bf16 nprobe32 1.46 ms  (model 1.81: probed buckets at gather
-                                rate 0.4x roofline + spill at scan rate
-                                + 0.3 ms probe/merge overhead)
-    IVF int8 s1.25    1.08-1.16 ms (model 1.06)
-    IVF int8 s1.6     0.845 ms (model 0.71)
-
-Latency predictions are a roofline MODEL (+-35% at the pinned points);
-residency predictions are arithmetic (+-10%, cap rounding approximated).
-Multi-chip numbers assume the slot-sharded layouts (bytes/chip / S,
-centroids replicated) and are model-only until a real pod exists.
+Residency is arithmetic (+-10%, cap rounding approximated): rows times
+bytes per row, plus for IVF the slot budget, cap rounding, replicated
+centroids and the spill strip. Multi-card numbers assume the slot-sharded
+layouts (bytes/card / S, centroids replicated). The memory budget is the
+device's own allocator limit (`memory_stats()["bytes_limit"]`, what one
+JAX process may use) or `--hbm-gb`. Query latency is not predicted here:
+it is measured per cell on the card (PERF.md).
 """
 
 from __future__ import annotations
@@ -36,11 +20,6 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import List, Optional
 
-# Measured constants (COVERAGE.md receipts, v5e)
-EFFECTIVE_SCAN_GBPS = 710.0     # 87% of the 819 GB/s HBM roofline
-IVF_GATHER_EFF = 0.4            # probed-bucket DMA vs streaming scan
-IVF_OVERHEAD_MS = 0.3           # centroid matmul + probe list + merge
-HBM_GB_DEFAULT = 16.0           # v5e
 HBM_HEADROOM = 0.9              # leave 10% for queries/compiler scratch
 
 QUANTS = ("bf16", "int8", "int4")
@@ -84,7 +63,7 @@ def ivf_resident_gb(
     rows, slot-sharded over chips) + average cap-rounding waste (~64
     slots/bucket/shard) + replicated centroids + the exact-scanned spill
     strip. spill_frac is corpus-dependent (measured 7.9% at slots 1.25,
-    2.4% at 1.6 on the anchor-skew 10M corpus)."""
+    2.4% at 1.6 on an anchor-skewed 10M corpus)."""
     clusters = clusters or default_clusters(rows)
     rb = row_bytes(dim, quant)
     buckets = slots_frac * rows * rb / shards
@@ -100,32 +79,16 @@ def default_clusters(rows: int) -> int:
     return 1 << (c - 1).bit_length()
 
 
-def predict_flat_q1_ms(rows: int, dim: int, quant: str = "bf16",
-                       shards: int = 1) -> float:
-    gb = flat_resident_gb(rows, dim, quant, shards)
-    return gb / (EFFECTIVE_SCAN_GBPS / 1e3)
+def device_memory_gb(device=None) -> float:
+    """Memory one JAX process may allocate on `device` (default: the
+    first), in GB; raises where the backend does not report it."""
+    import jax
 
-
-def predict_ivf_q1_ms(
-    rows: int,
-    dim: int,
-    quant: str = "bf16",
-    clusters: int = 0,
-    nprobe: int = 32,
-    slots_frac: float = 1.3,
-    spill_frac: float = 0.05,
-    shards: int = 1,
-) -> float:
-    clusters = clusters or default_clusters(rows)
-    rb = row_bytes(dim, quant)
-    bucket_gb = (slots_frac * rows + clusters * 64.0) * rb / shards / 1e9
-    probed_gb = min(nprobe, clusters) / clusters * bucket_gb
-    spill_gb = spill_frac * rows * rb / shards / 1e9
-    cent_gb = clusters * dim * 4.0 / 1e9
-    scan_rate = EFFECTIVE_SCAN_GBPS / 1e3            # GB per ms
-    return (probed_gb / (scan_rate * IVF_GATHER_EFF)
-            + (spill_gb + cent_gb) / scan_rate
-            + IVF_OVERHEAD_MS)
+    device = device or jax.devices()[0]
+    stats = device.memory_stats() or {}
+    if "bytes_limit" not in stats:
+        raise ValueError(f"{device} reports no memory limit; pass hbm_gb")
+    return stats["bytes_limit"] / 1e9
 
 
 @dataclass
@@ -134,7 +97,6 @@ class PlanOption:
     index: str                  # "flat" | "ivf"
     shards: int
     resident_gb_per_chip: float
-    predicted_q1_ms: float
     fits: bool
     exact: bool                 # exact top-k ids (no ANN, no int4)
     note: str = ""
@@ -143,8 +105,8 @@ class PlanOption:
         tag = f"{self.quant}/{self.index}"
         fit = "fits" if self.fits else "OOM"
         return (f"{tag:10s} x{self.shards} chip(s): "
-                f"{self.resident_gb_per_chip:6.2f} GB/chip [{fit}], "
-                f"Q1 ~{self.predicted_q1_ms:6.2f} ms — {self.note}")
+                f"{self.resident_gb_per_chip:6.2f} GB/chip [{fit}] — "
+                f"{self.note}")
 
 
 @dataclass
@@ -160,7 +122,7 @@ class PlanReport:
     def render(self) -> str:
         lines = [
             f"plan: {self.rows:,} rows x {self.dim} dims on "
-            f"{self.chips} chip(s) x {self.hbm_gb:.0f} GB HBM "
+            f"{self.chips} chip(s) x {self.hbm_gb:.1f} GB device memory "
             f"(budget {HBM_HEADROOM:.0%})",
         ]
         lines += ["  " + o.describe() for o in self.options]
@@ -185,31 +147,27 @@ def plan(
     rows: int,
     dim: int,
     chips: int = 1,
-    hbm_gb: float = HBM_GB_DEFAULT,
+    hbm_gb: Optional[float] = None,
     nprobe: int = 32,
     clusters: int = 0,
     slots_frac: float = 1.3,
     spill_frac: float = 0.05,
-    target_ms: float = 0.0,
 ) -> PlanReport:
     """Enumerate the residency ladder and recommend the highest-quality
-    configuration that fits (and meets target_ms, if given)."""
+    configuration that fits. `hbm_gb` defaults to device_memory_gb()."""
+    if hbm_gb is None:
+        hbm_gb = device_memory_gb()
     budget = hbm_gb * HBM_HEADROOM
     options: List[PlanOption] = []
     for quant in QUANTS:
         g = flat_resident_gb(rows, dim, quant, chips)
         options.append(PlanOption(
-            quant, "flat", chips, g,
-            predict_flat_q1_ms(rows, dim, quant, chips),
-            g <= budget, exact=(quant != "int4"),
+            quant, "flat", chips, g, g <= budget, exact=(quant != "int4"),
             note="exact scan; " + _QUANT_NOTES[quant]))
         gi = ivf_resident_gb(rows, dim, quant, clusters, slots_frac,
                              spill_frac, chips)
         options.append(PlanOption(
-            quant, "ivf", chips, gi,
-            predict_ivf_q1_ms(rows, dim, quant, clusters, nprobe,
-                              slots_frac, spill_frac, chips),
-            gi <= budget, exact=False,
+            quant, "ivf", chips, gi, gi <= budget, exact=False,
             note=f"ANN nprobe={nprobe}; " + _QUANT_NOTES[quant]))
 
     # quality order: exact scans first (bf16 then int8), then bf16 IVF,
@@ -217,18 +175,8 @@ def plan(
     order = [("bf16", "flat"), ("int8", "flat"), ("bf16", "ivf"),
              ("int8", "ivf"), ("int4", "flat"), ("int4", "ivf")]
     by_key = {(o.quant, o.index): o for o in options}
-    recommended = None
-    for key in order:
-        o = by_key[key]
-        if o.fits and (target_ms <= 0 or o.predicted_q1_ms <= target_ms):
-            recommended = o
-            break
-    if recommended is None and target_ms > 0:
-        # nothing meets the latency target: fall back to fit-only
-        for key in order:
-            if by_key[key].fits:
-                recommended = by_key[key]
-                break
+    recommended = next((by_key[key] for key in order if by_key[key].fits),
+                       None)
 
     bf16_gb_total = rows * row_bytes(dim, "bf16") / 1e9
     min_chips = max(1, int(-(-bf16_gb_total // budget)))

@@ -110,8 +110,8 @@ def macro_f1(
     """Macro-averaged F1 over classes (reference `cls_f1`, code/utils.py:41-76).
 
     Computed host-side in numpy: the inputs are tiny and this gets called
-    eagerly in training loops, where per-op device dispatch (remote-compile
-    on tunneled backends) would dominate."""
+    eagerly in training loops, where per-op device dispatch would
+    dominate."""
     preds_a = np.asarray(preds).astype(np.int64)
     labels_a = np.asarray(labels).astype(np.int64)
     cm = np.bincount(labels_a * num_classes + preds_a,

@@ -3,7 +3,7 @@
 // The reference's governance tools are single-threaded Python loops over
 // files (tool/find_repeated.py walks + hashes one file at a time; the
 // perceptual dedup is an O(N^2) interpreted scan). This library provides the
-// CPU-side heavy lifting for the TPU framework's governance path:
+// CPU-side heavy lifting for the framework's governance path:
 //
 //   - md5_files:        thread-pool MD5 over file CONTENTS (byte-exact dedup
 //                       and manifest fingerprints). Self-contained MD5

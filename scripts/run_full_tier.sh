@@ -4,7 +4,7 @@
 #
 # Why: the in-process XLA CPU backend on this 1-core box intermittently
 # SEGFAULTs inside backend_compile when one pytest process accumulates
-# many large TP-sharded compilations (NEXT.md round-4 flake:
+# many large TP-sharded compilations (a round-4 flake:
 # test_tp_hosted_verifier_with_draft crashed once, re-ran clean 24/24 —
 # same family as the 2x2-mesh rendezvous aborts). Per-file isolation
 # bounds the blast radius: a crash fails ONE file's phase visibly

@@ -2,7 +2,7 @@
 
 Runs as one of N coordinated processes (jax.distributed over TCP on the
 CPU backend, `local_devices` forced host devices each): builds the hybrid
-DCN x ICI mesh, loads only ITS process-local gallery rows, and answers a
+cross-host x in-host mesh, loads only ITS process-local gallery rows, and answers a
 sharded top-k, a slot-sharded IVF probe, a dedup ring pass, and a DP x TP
 decode. Results are written as JSON for the parent test to cross-check
 against the single-process numpy oracle.
@@ -55,7 +55,7 @@ def main() -> None:
     vals, idxs = sharded_cosine_topk(q, garr, k=5, mesh=mesh, n_valid=n)
 
     # slot-sharded IVF across processes: buckets strip over the
-    # DCN-spanning data axis (replicated over model), probed at
+    # host-spanning data axis (replicated over model), probed at
     # nprobe == C — exact by contract, so ids must match the same
     # brute-force oracle the flat path was checked against
     from mmrs_tpu.index.ivf import build_ivf
@@ -66,7 +66,7 @@ def main() -> None:
     _, ivf_idxs = sharded_ivf_topk(np.asarray(q), ivf, k=5, nprobe=8,
                                    mesh=mesh, impl="xla")
 
-    # dedup ring across DCN: keep-first first-match over row shards that
+    # dedup ring across hosts: keep-first first-match over row shards that
     # ppermute around the data axis (planted near-duplicates at known
     # rows; the parent re-derives the oracle with numpy)
     from mmrs_tpu.parallel.dedup import sharded_first_match
@@ -85,9 +85,9 @@ def main() -> None:
 
     dedup_first = multihost_utils.process_allgather(dedup_first, tiled=True)
 
-    # The pod VLM serving shape: decoder TP over each host's ICI domain
+    # The multi-host VLM serving shape: decoder TP over each host
     # (model axis never crosses processes — proc_grid above proves it),
-    # batch rows over the DCN-spanning data axis. Params/prompts are
+    # batch rows over the host-spanning data axis. Params/prompts are
     # deterministic so both processes hold identical host values; the
     # parent compares the decode against its single-process oracle.
     jax.config.update("jax_default_matmul_precision", "highest")

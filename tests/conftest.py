@@ -2,7 +2,7 @@
 
 Mirrors SURVEY.md §4's multi-device test strategy: sharded gallery /
 distributed top-k / dedup paths are exercised on
-`--xla_force_host_platform_device_count=8` without TPU hardware.
+`--xla_force_host_platform_device_count=8` without accelerator hardware.
 Must run before jax initializes, hence the env mutation at import time.
 """
 
@@ -25,7 +25,8 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", False)
 # The CPU backend's default matmul precision is reduced (oneDNN bf16-class);
 # parity tests compare against f64/torch oracles, so force true f32 matmuls.
-# On TPU the production path controls precision explicitly via compute_dtype.
+# On the GPU the production path controls precision explicitly via
+# compute_dtype, and the oracles pass precision=HIGHEST themselves.
 jax.config.update("jax_default_matmul_precision", "highest")
 
 

@@ -67,7 +67,7 @@ def test_cascade_gate_and_verifier():
 
 
 class _PackStubVerifier(StubVerifier):
-    """StubVerifier that records fixed-batch packs like the TPU verifier."""
+    """StubVerifier that records fixed-batch packs like the LLaVA verifier."""
 
     def __init__(self, *a, **kw):
         super().__init__(*a, **kw)
@@ -113,7 +113,7 @@ def test_cascade_streaming_matches_run():
 
 
 class _AsyncPackStubVerifier(_PackStubVerifier):
-    """Adds the async dispatch/collect split the TPU verifier exposes, with
+    """Adds the async dispatch/collect split the LLaVA verifier exposes, with
     deferred answer resolution so a premature (unpipelined) collect would
     be visible as max_in_flight == 1."""
 
@@ -420,35 +420,3 @@ def test_cascade_journal_append_after_torn_tail(tmp_path):
     ref = build(StubVerifier(answers=dict(answers))).run(
         paths, "cat", labels=labels)
     np.testing.assert_array_equal(res.verified, ref.verified)
-
-
-def test_verifier_prefill_attn_auto_respects_scan_layers(monkeypatch):
-    """auto never picks the pallas chunk kernel under layers='scan' (a
-    pallas_call inside lax.scan hangs this platform's compiler)."""
-    import jax as _jax
-    import jax.numpy as jnp
-    from mmrs_tpu.models import llava
-    from mmrs_tpu.models.configs import VITConfig
-    from mmrs_tpu.models.llama import LlamaConfig
-    from mmrs_tpu.cascade.verifier import TPULLaVAVerifier
-
-    lcfg = LlamaConfig(vocab_size=64, dim=32, layers=1, heads=2,
-                       kv_heads=1, mlp_dim=64, max_seq=64)
-    vcfg = VITConfig(image_size=32, patch_size=8, width=32, layers=1,
-                     heads=2, embed_dim=16)
-    cfg = llava.LLaVAConfig(vision=vcfg, lm=lcfg)
-    params = llava.init(_jax.random.key(0), cfg)
-    monkeypatch.setattr(_jax, "default_backend", lambda: "tpu")
-
-    class _Tok:
-        def encode(self, text):
-            return [3 + (ord(c) % 60) for c in text][:8]
-
-        def decode(self, ids):
-            return "x" * len(ids)
-
-    mk = lambda **kw: TPULLaVAVerifier(params, cfg, _Tok(),
-                                       image_size=32, **kw)
-    assert mk(layers="scan").prefill_attn == "xla"
-    assert mk(layers="fori").prefill_attn == "pallas"
-    assert mk(layers="fori", prefill_chunk=64).prefill_attn == "xla"

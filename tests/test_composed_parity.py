@@ -208,7 +208,7 @@ def test_composed_rank_and_threshold_parity(tmp_path, corpus, model_pair):
     np.testing.assert_array_equal(
         pixels, np.concatenate([ref_pixels, ref_sample_px]))
 
-    x = normalize_images(jnp.asarray(pixels), dtype=jnp.float32, impl="xla")
+    x = normalize_images(jnp.asarray(pixels), dtype=jnp.float32)
     embs = np.asarray(
         clip.encode_image(params, x, cfg, compute_dtype=jnp.float32))
     gallery, sample_embs = embs[: len(jpegs)], embs[len(jpegs):]

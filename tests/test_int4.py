@@ -1,7 +1,7 @@
 """int4 grouped-quant weights (QTensor4): pack/unpack exactness, matmul
 dispatch, and the full llama decode path running on int4 weights.
 
-Decode is weight-bandwidth-bound (NEXT.md #4): int4 halves the stream
+Decode is weight-bandwidth-bound: int4 halves the stream
 that sets the floor. These tests pin the MECHANICS (pack/unpack is
 lossless for representable values; the model runs and tracks its own
 dequantized-oracle exactly); int4 QUALITY needs real weights, same as

@@ -338,24 +338,27 @@ def test_int4_ivf_full_probe_matches_flat_int4():
         np.pad(g, ((0, 0), (0, 64))))))  # flat oracle at the padded dim
     fv, fi = cosine_topk_int4(jnp.asarray(np.pad(np.asarray(q),
                                                  ((0, 0), (0, 64)))),
-                              packed, scales, k=7, impl="xla")
+                              packed, scales, k=7)
     av, ai = ivf_topk(q, ivf, k=7, nprobe=8, impl="xla")
     np.testing.assert_array_equal(np.asarray(ai), np.asarray(fi))
     np.testing.assert_allclose(np.asarray(av), np.asarray(fv), atol=1e-5)
 
 
 def test_int4_ivf_pallas_interpret_matches_xla_and_roundtrips(tmp_path):
-    """The int4 probe kernel (interpret) == its XLA oracle bit-for-bit;
-    sidecar save/load rebuilds the packed planes."""
+    """int4 buckets have no probe kernel: "auto" is the XLA form and
+    asking for the kernel raises; sidecar save/load rebuilds the packed
+    planes."""
     rng = np.random.default_rng(41)
     g = _blobs(rng, 600, 64, 12)
     q = jnp.asarray(_normed(rng, 4, 64))
     ivf = build_ivf(g, n_clusters=12, bucket_cap=128, iters=3,
                     quantize="int4")
     vx, ix = ivf_topk(q, ivf, k=6, nprobe=3, impl="xla")
-    vp, ip = ivf_topk(q, ivf, k=6, nprobe=3, impl="pallas_interpret")
-    np.testing.assert_array_equal(np.asarray(ip), np.asarray(ix))
-    np.testing.assert_array_equal(np.asarray(vp), np.asarray(vx))
+    va, ia = ivf_topk(q, ivf, k=6, nprobe=3, impl="auto")
+    np.testing.assert_array_equal(np.asarray(ia), np.asarray(ix))
+    np.testing.assert_array_equal(np.asarray(va), np.asarray(vx))
+    with pytest.raises(ValueError, match="no kernel"):
+        ivf_topk(q, ivf, k=6, nprobe=3, impl="pallas_interpret")
 
     save_ivf(str(tmp_path), ivf)
     ivf2 = load_ivf(str(tmp_path), g)

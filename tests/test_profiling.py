@@ -22,14 +22,14 @@ def test_trace_op_table(tmp_path):
 
 def test_trace_op_table_within(tmp_path):
     """within= attributes ops by interval containment inside a named span
-    (how the decode while body was itemized, NEXT.md #4)."""
+    (how the decode while body is itemized)."""
     import gzip
     import json
     import os
 
     events = [
         {"ph": "M", "name": "process_name", "pid": 1,
-         "args": {"name": "/device:TPU:0"}},
+         "args": {"name": "/device:GPU:0"}},
         # outer loop span 0..100, inner ops on a sibling row (same pid)
         {"ph": "X", "pid": 1, "tid": 1, "name": "while.9", "ts": 0,
          "dur": 100},

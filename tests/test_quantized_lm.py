@@ -1,7 +1,7 @@
 """int8 serving weights for the LLaMA decoder / LLaVA verifier.
 
 The reference serves its verifier in 8-bit (load_8bit=True,
-code/test_llava.py:13); here int8 lives on the MXU with per-channel weight
+code/test_llava.py:13); here int8 weights run int8 matmuls with per-channel weight
 scales + dynamic activation quant (models/quantize.py). These tests pin
 the numerics contract at tiny scale: logits stay close to the f32 decoder
 and a decisively-peaked next-token distribution keeps its argmax.

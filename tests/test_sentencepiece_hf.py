@@ -175,7 +175,7 @@ def test_decode_roundtrip(sp, text):
 
 
 def test_llava_prompt_chunks_match_hf(sp, hf_tokenizer):
-    """The exact chunks the TPU verifier feeds around the <image> slot."""
+    """The exact chunks the LLaVA verifier feeds around the <image> slot."""
     from mmrs_tpu.cascade.verifier import llava_v1_prompt_parts
 
     pre, post = llava_v1_prompt_parts("Does this image contain a cat?")

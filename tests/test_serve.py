@@ -329,9 +329,9 @@ def test_vlm_packs_across_requests():
 
 
 def test_search_not_blocked_by_slow_verify():
-    """With concurrent fetches allowed (PCIe-host mode), a search completes
-    while a verify's VLM collect is still in flight — the 7B decode no
-    longer blocks every search request behind a global lock."""
+    """A search completes while a verify's VLM collect is still in
+    flight — the 7B decode never blocks search requests behind a global
+    lock."""
     from mmrs_tpu.serve import SearchService
 
     dispatched = threading.Event()
@@ -348,8 +348,7 @@ def test_search_not_blocked_by_slow_verify():
 
     svc = SearchService(engine=_FakeEngine(), towers=_stub_towers(),
                         verifier=SlowVerifier(), verify_batch=2,
-                        logit_scale=1.0, batch_window=0.005,
-                        serialize_fetch=False)
+                        logit_scale=1.0, batch_window=0.005)
     verify_result = []
 
     def do_verify():

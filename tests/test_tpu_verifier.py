@@ -374,43 +374,3 @@ def test_dp_tp_verifier_pads_odd_batches(verifier, tmp_path):
     assert vt.verify_batch(paths, "cat") == v.verify_batch(paths, "cat")
     q = "Does this image contain a cat?"
     assert vt.generate_text(img, q) == v.generate_text(img, q)
-
-
-def test_auto_kernel_rules_stay_xla_under_mesh(monkeypatch):
-    """No auto rule may pick an untested kernel/mesh combo (VERDICT r3
-    #5): pallas_call with GSPMD-partitioned operands has never run on
-    real ICI, so with a mesh the auto attention impls resolve to XLA
-    even on a TPU backend; explicit 'pallas' stays available."""
-    import jax.numpy as jnp
-
-    from mmrs_tpu.config import MeshConfig
-    from mmrs_tpu.parallel import make_mesh
-
-    lcfg = LlamaConfig(vocab_size=128, dim=64, layers=1, heads=4, kv_heads=2,
-                       mlp_dim=128, max_seq=64)
-    vcfg = VITConfig(image_size=32, patch_size=8, width=48, layers=1, heads=4,
-                     embed_dim=32)
-    cfg = llava.LLaVAConfig(vision=vcfg, lm=lcfg)
-    params = llava.init(jax.random.key(0), cfg)
-    tok = ToyTokenizer()
-    mesh = make_mesh(MeshConfig())
-
-    # the verifier imports jax inside __init__, so patching the global
-    # module covers it
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-
-    kw = dict(max_new_tokens=2, eos_token=-1, image_size=32,
-              compute_dtype=jnp.float32, layers="fori")
-    solo = TPULLaVAVerifier(params, cfg, tok, **kw)
-    assert solo.attn_impl == "pallas"
-    assert solo.prefill_attn == "pallas"
-
-    meshed = TPULLaVAVerifier(params, cfg, tok, mesh=mesh, **kw)
-    assert meshed.attn_impl == "xla"
-    assert meshed.prefill_attn == "xla"
-    assert meshed.decode_attn == "xla"
-
-    # explicit pallas is respected (for hardware measurement), not vetoed
-    forced = TPULLaVAVerifier(params, cfg, tok, mesh=mesh,
-                              attn_impl="pallas", **kw)
-    assert forced.attn_impl == "pallas"

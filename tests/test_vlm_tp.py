@@ -223,7 +223,7 @@ def test_tp_speculative_sharded_draft_ideal_rounds():
 @pytest.mark.slow
 def test_tp8_generate_matches_single_device():
     """TP=8 (the whole 8-device mesh on the model axis): heads, kv-heads,
-    and MLP split 8 ways — the widest single-host ICI TP a v5e tray
+    and MLP split 8 ways — the widest single-host TP an 8-card host
     serves."""
     cfg = LlamaConfig(vocab_size=96, dim=128, layers=2, heads=8,
                       kv_heads=8, mlp_dim=256, max_seq=64)
